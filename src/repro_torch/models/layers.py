@@ -1,0 +1,262 @@
+"""Primitive layers: norms, RoPE, GQA attention (flash-style chunked), MLPs.
+
+The PyTorch port of ``repro.models.layers``.  Every layer is a plain function
+``f(params, x, cfg, ...)`` over tensors; ``params`` is anything indexable by
+the reference's leaf names (a dict or an ``nn.ParameterDict``).  Weights keep
+the reference's ``(in, out)`` orientation, so a projection is ``x @ W``.
+Products accumulate in f32 and activations stay in the config dtype, as the
+reference's ``preferred_element_type=jnp.float32`` einsums do.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ArchConfig
+
+
+def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with an f32 result from products summed in f32 — the port of
+    ``einsum(..., preferred_element_type=jnp.float32)``.  On the card a bf16
+    product stays a bf16 GEMM that writes f32 (``mm`` with ``out_dtype``); on
+    the CPU the operands are widened to f32 first."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (S,) or broadcastable to (..., S).
+    Rotates split halves (not interleaved pairs), in f32."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)  # (hd/2,)
+    angles = positions[..., :, None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AttnMask:
+    causal: bool
+    window: Optional[int] = None  # keys with qpos - kpos >= window are masked
+    kv_len: Optional[torch.Tensor] = None  # valid KV prefix length (decode padding)
+
+
+def _mask_block(qpos: torch.Tensor, kpos: torch.Tensor, m: AttnMask) -> torch.Tensor:
+    """Boolean (…, Sq, Sk) mask block from absolute positions."""
+    ok = torch.ones((qpos.shape[-1], kpos.shape[-1]), dtype=torch.bool, device=qpos.device)
+    if m.causal:
+        ok &= kpos[None, :] <= qpos[:, None]
+    if m.window is not None:
+        ok &= kpos[None, :] > (qpos[:, None] - m.window)
+    if m.kv_len is not None:
+        # kv_len broadcasts per batch: (B, 1, 1) vs (Sq, Sk)
+        ok = ok[None] & (kpos[None, None, :] < m.kv_len[:, None, None])
+    return ok
+
+
+def _heads_out(o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, KV, G, Sq, hd) -> (B, Sq, H, hd) in ``dtype``."""
+    B, KV, G, Sq, hd = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, KV * G, hd).to(dtype)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: AttnMask,
+    *,
+    chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Flash-style attention: a loop over KV chunks with an online softmax.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H = KV * G (GQA).  ``p`` is
+    cast to ``v.dtype`` before the PV product, as the reference does; the
+    statistics m/l and the accumulator stay f32.
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    scale = hd ** -0.5
+    qg = (q * scale).reshape(B, Sq, KV, G, hd).float()
+    n_chunks = -(-Sk // chunk)
+    pad = n_chunks * chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    m_i = torch.full((B, KV, G, Sq), -torch.inf, dtype=torch.float32, device=q.device)
+    l_i = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=q.device)
+    for j in range(n_chunks):
+        k_j = k[:, j * chunk : (j + 1) * chunk]
+        v_j = v[:, j * chunk : (j + 1) * chunk]
+        kpos = j * chunk + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqkgh,bckh->bkgqc", qg, k_j.float())  # (B, KV, G, Sq, chunk)
+        ok = _mask_block(qpos, kpos, mask) & (kpos < Sk)  # exclude right padding
+        okb = ok[None, None, None] if ok.ndim == 2 else ok[:, None, None]
+        s = s.masked_fill(~okb, -torch.inf)
+        m_new = torch.maximum(m_i, s.amax(dim=-1))
+        # Rows with no valid key yet keep m=-inf; guard exp(-inf - -inf).
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None]).masked_fill(~okb, 0.0)
+        alpha = torch.where(torch.isneginf(m_i), 0.0, torch.exp(m_i - m_safe))
+        l_i = l_i * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(v_j.dtype).float(), v_j.float())
+        acc = acc * alpha[..., None] + pv
+        m_i = m_new
+    out = acc / torch.clamp_min(l_i, 1e-30)[..., None]
+    return _heads_out(out, q.dtype)
+
+
+def plain_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: AttnMask, q_offset: int = 0
+) -> torch.Tensor:
+    """Direct softmax attention (oracle for tests; decode path)."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    qg = (q * hd ** -0.5).reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    ok = _mask_block(qpos, torch.arange(Sk, device=q.device), mask)
+    okb = ok[None, None, None] if ok.ndim == 2 else ok[:, None, None]
+    s = s.masked_fill(~okb, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows
+    o = torch.einsum("bkgqs,bskh->bkgqh", p, v.float())
+    return _heads_out(o, q.dtype)
+
+
+def attention_block(
+    params,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    *,
+    positions: torch.Tensor,
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+    kv_len: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full attention sub-layer: qkv proj, rope, SDPA, out proj.
+
+    Prefill: ``kv_cache=None`` — attends within ``x`` and returns the roped
+    K/V it made, which are the decode cache's entries for these positions.
+    Decode: ``kv_cache=(K, V)`` of shape (B, S_max, KV, hd); the new token's
+    K/V are written at ``cache_pos`` IN PLACE (the reference returns an
+    updated copy) and attention runs over the cache, which is returned.
+    """
+    B, S, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = _dot_f32(x, params["wq"])
+    k = _dot_f32(x, params["wk"])
+    v = _dot_f32(x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = q.to(dt).reshape(B, S, H, hd)
+    k = k.to(dt).reshape(B, S, KV, hd)
+    v = v.to(dt).reshape(B, S, KV, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is None:
+        mask = AttnMask(causal=cfg.causal, window=cfg.window)
+        if cfg.use_kernels:
+            from repro_torch.kernels.ops import flash_attention  # lazy: no cycle
+
+            out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+        elif S > cfg.attn_chunk:
+            out = chunked_attention(q, k, v, mask, chunk=cfg.attn_chunk)
+        else:
+            out = plain_attention(q, k, v, mask)
+        cache = (k, v)
+    else:
+        K, V = kv_cache
+        assert cache_pos is not None
+        K[:, cache_pos : cache_pos + S] = k
+        V[:, cache_pos : cache_pos + S] = v
+        cache = (K, V)
+        mask = AttnMask(causal=cfg.causal, window=cfg.window, kv_len=kv_len)
+        # query absolute position == its cache slot
+        out = plain_attention(q, K, V, mask, q_offset=cache_pos)
+    y = _dot_f32(out.reshape(B, S, H * hd), params["wo"])
+    return y.to(dt), cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def mlp_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    dt = x.dtype
+    if cfg.mlp_act == "swiglu":
+        g = _dot_f32(x, params["w_gate"])
+        u = _dot_f32(x, params["w_up"])
+        h = (F.silu(g) * u).to(dt)
+    else:  # gelu: classic 2-matrix MLP (encoder stacks); jax.nn.gelu is tanh
+        u = _dot_f32(x, params["w_up"])
+        h = F.gelu(u, approximate="tanh").to(dt)
+    return _dot_f32(h, params["w_down"]).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialization helpers
+# ---------------------------------------------------------------------------
+def dense_init(
+    generator: Optional[torch.Generator],
+    shape: Tuple[int, ...],
+    dtype: torch.dtype,
+    fan_in: int,
+    device=None,
+) -> torch.Tensor:
+    """N(0, 1/fan_in) drawn in f32 on ``device``, cast to ``dtype``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return (w * fan_in ** -0.5).to(dtype)
+
+
+def attn_param_shapes(cfg: ArchConfig) -> dict:
+    q = cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv_heads * cfg.head_dim
+    d = cfg.d_model
+    shapes = {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d)}
+    if cfg.qkv_bias:
+        shapes.update({"bq": (q,), "bk": (kv,), "bv": (kv,)})
+    return shapes
+
+
+def mlp_param_shapes(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act == "swiglu":
+        return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    return {"w_up": (d, f), "w_down": (f, d)}

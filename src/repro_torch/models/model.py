@@ -1,0 +1,351 @@
+"""Full model assembly, dense decoder path: embeddings -> period stack ->
+head / decode state.  The PyTorch port of ``repro.models.model``.
+
+The reference keeps each period position's parameters under
+``params["stack"][f"pos{i}"]`` with a leading ``n_periods`` axis and scans
+over it.  Here ``DecoderLM`` holds an ``nn.ModuleList`` with one
+``nn.ModuleDict`` of ``pos{i}`` blocks per repetition, and the scan is a
+Python loop.  Parameter names mirror the
+reference's key paths: ``layers.{p}.pos{i}.mixer.wq`` is
+``stack/pos{i}/mixer/wq[p]``; weights keep the ``(in, out)`` orientation.
+
+Entry points, as in the reference (``params`` is a ``DecoderLM``):
+
+  init_params / param_shapes      parameter tree (real / meta tensors)
+  forward                         token embeddings -> final hidden
+  prefill                         forward + KV decode state
+  init_decode_state / decode_step one-token serving step
+
+The decode caches keep the reference layout at this boundary: per
+``pos{i}``, ``k`` and ``v`` of shape (n_periods, B, S, KV, hd).
+SSM mixers, MoE channel mixers and the patch/frame frontends are not ported
+yet (ROADMAP.md queue A); a config that needs them raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (
+    _dot_f32,
+    attention_block,
+    attn_param_shapes,
+    dense_init,
+    mlp_block,
+    mlp_param_shapes,
+    rms_norm,
+)
+
+_F32_LEAVES = ("A_log", "D", "dt_bias")  # small SSM params stay f32
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Asking for CUDA where there is none raises:
+    the port never drops to the CPU unasked."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU explicitly"
+        )
+    return dev
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for the parts of the model zoo this port does not run yet."""
+    if "ssm" in cfg.period:
+        raise NotImplementedError(
+            f"{cfg.name}: SSM mixers are not ported yet (ROADMAP.md queue A, the SSM slice)"
+        )
+    if "moe" in cfg.mlp_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE channel mixers are not ported yet (ROADMAP.md queue A, the MoE slice)"
+        )
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
+            "(ROADMAP.md queue A, the rest of the zoo)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+def _position_shapes(cfg: ArchConfig, i: int) -> dict:
+    mixer, mlp = cfg.period[i], cfg.mlp_pattern[i]
+    shapes = {"norm1": (cfg.d_model,), "mixer": attn_param_shapes(cfg)}
+    if mlp != "none":
+        shapes["norm2"] = (cfg.d_model,)
+        shapes["mlp"] = mlp_param_shapes(cfg)
+    return shapes
+
+
+def _init_leaf(g, device, name: str, shape, cfg: ArchConfig, stacked: int = 0):
+    """One parameter leaf.  ``stacked`` > 0 prepends the period axis."""
+    full = (stacked, *shape) if stacked else tuple(shape)
+    dt = torch.float32 if name in _F32_LEAVES else cfg.torch_dtype
+    if name.startswith("norm") or name in ("gate_norm", "final_norm"):
+        return torch.ones(full, dtype=dt, device=device)
+    if name in ("conv_b", "dt_bias") or name.startswith("b"):
+        return torch.zeros(full, dtype=dt, device=device)
+    if name == "A_log":
+        return torch.zeros(full, dtype=dt, device=device)  # A = -exp(0) = -1
+    if name == "D":
+        return torch.ones(full, dtype=dt, device=device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    return dense_init(g, full, dt, fan_in, device)
+
+
+def _init_tree(g, device, tree, cfg: ArchConfig, stacked: int = 0):
+    return {
+        name: _init_tree(g, device, sub, cfg, stacked)
+        if isinstance(sub, dict)
+        else _init_leaf(g, device, name, sub, cfg, stacked)
+        for name, sub in tree.items()
+    }
+
+
+def init_params(
+    cfg: ArchConfig, generator: Optional[torch.Generator] = None, device=None
+) -> Dict:
+    """The reference's parameter tree, drawn on the generator's device (or
+    on ``device``; the meta device gives shapes without allocating).  Torch
+    and JAX streams differ, so values never match the reference's."""
+    check_supported(cfg)
+    device = generator.device if generator is not None else torch.device(device)
+    dt = cfg.torch_dtype
+    params: Dict = {"embed": dense_init(generator, (cfg.vocab, cfg.d_model), dt, cfg.d_model, device)}
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dt, cfg.d_model, device)
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+    params["stack"] = {
+        f"pos{i}": _init_tree(generator, device, _position_shapes(cfg, i), cfg, cfg.n_periods)
+        for i in range(len(cfg.period))
+    }
+    return params
+
+
+def param_shapes(cfg: ArchConfig) -> Dict:
+    """The parameter tree as meta tensors — shapes and dtypes, no allocation."""
+    return init_params(cfg, device="meta")
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Block(nn.Module):
+    """One period position: ``norm1`` + ``mixer`` (+ ``norm2`` + ``mlp``)."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        self.norm1 = _frozen(tree["norm1"])
+        self.mixer = nn.ParameterDict({k: _frozen(t) for k, t in tree["mixer"].items()})
+        if "mlp" in tree:
+            self.norm2 = _frozen(tree["norm2"])
+            self.mlp = nn.ParameterDict({k: _frozen(t) for k, t in tree["mlp"].items()})
+
+
+class DecoderLM(nn.Module):
+    """Dense decoder: ``embed``, ``layers`` (per period repetition, an
+    ``nn.ModuleDict`` of ``pos{i}`` blocks), ``final_norm`` and ``head``.
+    Built from a reference-layout tree whose leaves are checked against
+    ``param_shapes(cfg)``; serving needs no gradients, so every parameter
+    is frozen."""
+
+    def __init__(self, cfg: ArchConfig, tree: Dict):
+        super().__init__()
+        _check_tree(tree, param_shapes(cfg))  # raises first for unported families
+        self.cfg = cfg
+        self.embed = _frozen(tree["embed"])
+        if not cfg.tie_embeddings:
+            self.head = _frozen(tree["head"])
+        self.final_norm = _frozen(tree["final_norm"])
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({pos: Block(_take(sub, p)) for pos, sub in tree["stack"].items()})
+            for p in range(cfg.n_periods)
+        )
+
+    @classmethod
+    def from_config(cls, cfg: ArchConfig, seed: int = 0, device=None) -> "DecoderLM":
+        """Random weights drawn on ``device`` (the card unless the caller
+        asks for the CPU) from a seeded ``torch.Generator``."""
+        device = resolve_device(device)
+        g = torch.Generator(device=device).manual_seed(seed)
+        return cls(cfg, init_params(cfg, g))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def _take(tree: Dict, p: int) -> Dict:
+    """Period ``p``'s slice of a stacked subtree (views, no copy)."""
+    return {k: _take(v, p) if isinstance(v, dict) else v[p] for k, v in tree.items()}
+
+
+def _check_tree(tree: Dict, spec: Dict, path: str = "") -> None:
+    if set(tree) != set(spec):
+        raise ValueError(f"parameter tree at {path or '/'}: keys {sorted(tree)}, want {sorted(spec)}")
+    for k, want in spec.items():
+        got, where = tree[k], f"{path}/{k}"
+        if isinstance(want, dict):
+            _check_tree(got, want, where)
+        elif got.shape != want.shape or got.dtype != want.dtype:
+            raise ValueError(
+                f"parameter {where}: {tuple(got.shape)} {got.dtype}, "
+                f"want {tuple(want.shape)} {want.dtype}"
+            )
+
+
+# ---------------------------------------------------------------------------
+# Embeddings and the period body
+# ---------------------------------------------------------------------------
+def embed_inputs(params: DecoderLM, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+    """(B, S, d) token embeddings (the text frontend)."""
+    return params.embed[batch["tokens"]]
+
+
+def _channel_mix(blk: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = rms_norm(x, blk.norm2, cfg.norm_eps)
+    return x + mlp_block(blk.mlp, h, cfg)
+
+
+def _period_forward(
+    period: nn.ModuleDict,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    positions: torch.Tensor,
+    collect_cache: bool,
+):
+    """One period over a full sequence (prefill).  Returns (x, caches) where
+    caches[f"pos{i}"] holds dict(k, v) when ``collect_cache`` — the roped
+    K/V that ``attention_block`` made (the reference recomputes them; in f32
+    the two are equal)."""
+    caches = {}
+    for i, mlp in enumerate(cfg.mlp_pattern):
+        blk = period[f"pos{i}"]
+        h = rms_norm(x, blk.norm1, cfg.norm_eps)
+        y, (k, v) = attention_block(blk.mixer, h, cfg, positions=positions)
+        if collect_cache:
+            caches[f"pos{i}"] = {"k": k, "v": v}
+        x = x + y
+        if mlp != "none":
+            x = _channel_mix(blk, x, cfg)
+    return x, caches
+
+
+def _period_decode(
+    period: nn.ModuleDict,
+    cslice: Dict,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    cache_pos: int,
+    kv_len: torch.Tensor,
+) -> torch.Tensor:
+    """One period for one new token; writes its K/V into ``cslice`` in place."""
+    # made on the device: a host-to-device copy would wait for the queue
+    positions = torch.arange(cache_pos, cache_pos + 1, device=x.device)
+    for i, mlp in enumerate(cfg.mlp_pattern):
+        blk = period[f"pos{i}"]
+        c = cslice[f"pos{i}"]
+        h = rms_norm(x, blk.norm1, cfg.norm_eps)
+        y, _ = attention_block(
+            blk.mixer, h, cfg, positions=positions,
+            kv_cache=(c["k"], c["v"]), cache_pos=cache_pos, kv_len=kv_len,
+        )
+        x = x + y
+        if mlp != "none":
+            x = _channel_mix(blk, x, cfg)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Full forward passes
+# ---------------------------------------------------------------------------
+def forward(params: DecoderLM, cfg: ArchConfig, batch: Dict, *, collect_cache: bool = False):
+    """Embeddings -> period stack -> final norm.
+
+    Returns (hidden (B,S,d), caches) — caches stacked over periods when
+    ``collect_cache`` (prefill), else None.
+    """
+    x = embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    per_period = []
+    for period in params.layers:
+        x, caches = _period_forward(period, x, cfg, positions, collect_cache)
+        per_period.append(caches)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    if not collect_cache:
+        return x, None
+    stacked = {
+        pos: {name: torch.stack([c[pos][name] for c in per_period]) for name in sub}
+        for pos, sub in per_period[0].items()
+    }
+    return x, stacked
+
+
+def lm_head(params: DecoderLM, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """f32 logits."""
+    w = params.embed.T if cfg.tie_embeddings else params.head
+    return _dot_f32(hidden, w)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + one-token decode
+# ---------------------------------------------------------------------------
+def prefill(params: DecoderLM, cfg: ArchConfig, batch: Dict):
+    """Process the prompt; returns (last-position logits f32 (B, V), state).
+
+    state = (caches stacked over periods, kv_len (B,) int32).
+    """
+    hidden, caches = forward(params, cfg, batch, collect_cache=True)
+    logits = lm_head(params, cfg, hidden[:, -1:])[:, 0]
+    B, S = hidden.shape[0], hidden.shape[1]
+    kv_len = torch.full((B,), S, dtype=torch.int32, device=hidden.device)
+    return logits, (caches, kv_len)
+
+
+def init_decode_state(
+    cfg: ArchConfig, batch: int, max_len: int, device=None
+) -> Tuple[Dict, torch.Tensor]:
+    """Empty decode state sized for a ``max_len`` context.  K and V are
+    separate tensors: decode writes into them in place."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_periods, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    caches = {
+        f"pos{i}": {
+            "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        }
+        for i in range(len(cfg.period))
+    }
+    kv_len = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return caches, kv_len
+
+
+def decode_step(
+    params: DecoderLM,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,  # (B, 1) integer ids
+    state: Tuple[Dict, torch.Tensor],
+    cache_pos: int,  # slot the new token occupies
+):
+    """One serving step: consume one token, emit next-token logits.
+
+    Returns (logits f32 (B, V), new_state).  The caches in ``state`` are
+    updated in place and returned in ``new_state``; kv_len is a new tensor.
+    """
+    caches, kv_len = state
+    cache_pos = int(cache_pos)
+    x = params.embed[tokens]  # (B, 1, d)
+    new_kv_len = torch.clamp_min(kv_len, cache_pos + 1)
+    for p, period in enumerate(params.layers):
+        cslice = {pos: {name: t[p] for name, t in sub.items()} for pos, sub in caches.items()}
+        x = _period_decode(period, cslice, x, cfg, cache_pos, new_kv_len)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = lm_head(params, cfg, x)[:, 0]
+    return logits, (caches, new_kv_len)
