@@ -7,18 +7,24 @@ Phases, each of which fails the run (non-zero exit, no result line) when
 its check does not hold:
 
 1. the card's name and power limit; TF32 switched off for f32 products;
-2. build: every CUDA source of the port compiled by nvcc for sm_90a;
-3. kernel against plain: the flash-attention kernel against its plain
-   PyTorch version on the card, at the serving path's shape and a sweep of
-   others, with the kernel's time, the plain version's, one PyTorch SDPA
-   call's (the yardstick, never used by the port) and the card's bound;
+2. build: every CUDA source of the port compiled by nvcc for sm_90a, all
+   started together;
+3. kernels against plain: the flash-attention kernel and the SSD-scan kernel
+   each against its plain PyTorch version on the card, at its serving
+   path's shape and a sweep of others, with the kernel's time, the plain
+   version's, one PyTorch call's where one computes the same function (SDPA
+   for attention, the yardstick, never used by the port; none for the SSD
+   scan) and the card's bound;
 4. serve h2o-danube-3-4b at full width from seeded random weights drawn on
    the card: f32 prefill through the kernel against the non-kernel path and
-   prefill against step-by-step decode, then the main path — a bf16
+   prefill against step-by-step decode, then its main path — a bf16
    ``ServeEngine`` answering 4 prompts of 1024 tokens with 32 greedy tokens
-   each — with the kernel's launch count read around it;
-5. a profile of one prefill and one decode step (device busy share, the
-   kernels that take the time);
+   each — with the kernels' launch counts read around it, and a profile of
+   one prefill and one decode step (device busy share, the kernels that take
+   the time);
+5. the same for mamba2-130m at full width and full depth: f32 checks at
+   2 x 1000 tokens and 8 tokens, then its main path — 8 prompts of 2048
+   tokens with 64 greedy tokens each, 24 SSD-kernel launches per prefill;
 6. one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Imports nothing of JAX or the reference package.
@@ -43,14 +49,30 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # cores, f32 outside the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
-# Tolerances of the reference's kernel tests (tests/test_kernels.py) and of
-# its model-level checks (tests/test_arch_smoke.py).
+# Tolerances of the reference's kernel tests (tests/test_kernels.py:12,106)
+# and of its model-level checks (tests/test_arch_smoke.py).
 KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 MODEL_TOL = 2e-3
 
-ARCH = "h2o-danube-3-4b"
-SERVE_B, SERVE_L, SERVE_NEW = 4, 1024, 32
-CHECK_B, CHECK_L, CHECK_STEPS = 2, 512, 8
+
+@dataclasses.dataclass(frozen=True)
+class Path:
+    """One model's serving path: the main path's batch, prompt length and
+    new tokens, and the f32 checks' batch and prompt length."""
+
+    arch: str
+    kernel: str  # the hand kernel its prefill runs in every layer
+    serve_b: int
+    serve_l: int
+    serve_new: int
+    check_b: int
+    check_l: int
+
+
+DANUBE = Path("h2o-danube-3-4b", "flash_attention", 4, 1024, 32, 2, 512)
+MAMBA = Path("mamba2-130m", "ssd_scan", 8, 2048, 64, 2, 1000)  # 1000: padded to 1024 in the block
+CHECK_STEPS = 8
 
 
 def fail(msg: str) -> None:
@@ -82,14 +104,30 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def bound(B, Sq, Sk, H, KV, hd, dtype, causal, window):
-    """Least time the card could take: 4·hd FLOPs per visible pair per
-    (batch, head) at the dtype's peak, against q, k, v read once and o
-    written once at the memory rate.  Returns (ms, "operations"|"bytes")."""
-    flops = 4 * B * H * hd * visible_pairs(Sq, Sk, causal, window)
-    nbytes = torch.finfo(dtype).bits // 8 * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+def roofline(flops: float, nbytes: float, dtype) -> tuple:
+    """Least time the card could take for ``flops`` at the dtype's peak and
+    ``nbytes`` at the memory rate.  Returns (ms, "operations"|"bytes")."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound(B, Sq, Sk, H, KV, hd, dtype, causal, window):
+    """Flash attention: 4·hd FLOPs per visible pair per (batch, head),
+    against q, k, v read once and o written once."""
+    flops = 4 * B * H * hd * visible_pairs(Sq, Sk, causal, window)
+    nbytes = torch.finfo(dtype).bits // 8 * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+    return roofline(flops, nbytes, dtype)
+
+
+def ssd_bound(B, S, H, P, G, N, chunk, dtype):
+    """SSD scan: 2Q(QN + QP + 2NP) FLOPs per (batch, head, chunk) — the
+    C Bᵀ scores, the M x product, the C Sᵀ term and the state update —
+    against x read and y written once, dt, B and C once per group and the
+    final f32 state written once."""
+    flops = 2 * chunk * (chunk * N + chunk * P + 2 * N * P) * B * H * (S // chunk)
+    es = torch.finfo(dtype).bits // 8
+    nbytes = es * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + B * H * P * N + 2 * H)
+    return roofline(flops, nbytes, dtype)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -115,7 +153,7 @@ def sdpa(q, k, v, causal, window, mask):
 
 # name, B, S, H, KV, hd, dtype, causal, window
 KERNEL_SHAPES = [
-    ("serve prefill (main path)", SERVE_B, SERVE_L, 32, 8, 120, torch.bfloat16, True, 4096),
+    ("serve prefill (main path)", DANUBE.serve_b, DANUBE.serve_l, 32, 8, 120, torch.bfloat16, True, 4096),
     ("danube past the window", 1, 6144, 32, 8, 120, torch.bfloat16, True, 4096),
     ("danube heads, ragged S, f32", 2, 1000, 32, 8, 120, torch.float32, True, None),
     ("hd=128, H=48/KV=8", 1, 2048, 48, 8, 128, torch.bfloat16, True, None),
@@ -132,6 +170,14 @@ KERNEL_SHAPES = [
 ]
 
 
+def close(a: torch.Tensor, b: torch.Tensor, tol: float) -> tuple:
+    """(every element within tol abs + tol rel, max abs err, worst share of
+    the allowance diff / (tol + tol·|b|), which is <= 1 where close)."""
+    diff = (a.float() - b.float()).abs()
+    share = (diff / (tol + tol * b.float().abs())).max().item()
+    return share <= 1.0, diff.max().item(), share
+
+
 def kernel_checks(fa) -> list:
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -143,10 +189,8 @@ def kernel_checks(fa) -> list:
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = KERNEL_TOL[dtype]
-        diff = (out.float() - want.float()).abs()
-        err = diff.max().item()
-        ok = bool((diff <= tol + tol * want.float().abs()).all().item())
-        check(ok, f"kernel disagrees with plain at {name}: max abs err {err} (tol {tol})")
+        ok, err, share = close(out, want, tol)
+        check(ok, f"flash kernel disagrees with plain at {name}: max abs err {err} (tol {tol})")
         mask = None
         if window is not None:
             pos = torch.arange(S, device="cuda")
@@ -159,12 +203,81 @@ def kernel_checks(fa) -> list:
         bound_ms, bound_by = bound(B, S, S, H, KV, hd, dtype, causal, window)
         row = dict(
             shape=name, B=B, S=S, H=H, KV=KV, hd=hd, dtype=str(dtype).replace("torch.", ""),
-            causal=causal, window=window, max_abs_err=err, tol=tol, ms=kernel_ms,
+            causal=causal, window=window, max_abs_err=err, tol=tol, tol_share=share, ms=kernel_ms,
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
         )
         print("kernel " + json.dumps(row), flush=True)
         rows.append(row)
-        del q, k, v, out, want, diff, mask
+        del q, k, v, out, want, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
+# name, B, S, H, P, G, N, chunk, dtype, strided (x, B, C slices of one xBC)
+SSD_SHAPES = [
+    ("serve prefill (main path)", MAMBA.serve_b, MAMBA.serve_l, 24, 64, 1, 128, 128, torch.bfloat16, True),
+    ("mamba width, S=1024, f32", 2, 1024, 24, 64, 1, 128, 128, torch.float32, False),
+    ("100-token prompt: chunk 100", 2, 100, 24, 64, 1, 128, 100, torch.bfloat16, False),
+    ("100-token prompt: chunk 100, f32", 2, 100, 24, 64, 1, 128, 100, torch.float32, False),
+    ("8-token prompt: chunk 8", 2, 8, 24, 64, 1, 128, 8, torch.bfloat16, False),
+    ("8-token prompt: chunk 8, f32", 2, 8, 24, 64, 1, 128, 8, torch.float32, False),
+    ("minimal", 1, 64, 2, 16, 1, 16, 16, torch.float32, False),
+    ("minimal bf16", 1, 64, 2, 16, 1, 16, 16, torch.bfloat16, False),
+    ("grouped B/C", 2, 128, 4, 32, 2, 16, 32, torch.float32, False),
+    ("grouped B/C bf16", 2, 128, 4, 32, 2, 16, 32, torch.bfloat16, False),
+    ("odd heads", 1, 96, 3, 16, 1, 32, 32, torch.float32, False),
+    ("odd heads bf16", 1, 96, 3, 16, 1, 32, 32, torch.bfloat16, False),
+    ("strided x/B/C, f32", 2, 512, 24, 64, 1, 128, 128, torch.float32, True),
+]
+NO_LIBRARY_SSD = "none: no single PyTorch call computes the SSD scan"
+
+
+def ssd_inputs(g, B, S, H, P, G, N, dtype, strided):
+    """x, dt, A, B, C, D drawn like tests/test_kernels.py's SSD inputs; with
+    ``strided``, x, B and C are slices of one (B, S, H·P + 2·G·N) tensor, as
+    the model hands them over."""
+    cdim = H * P + 2 * G * N
+    if strided:
+        xbc = torch.randn(B, S, cdim, generator=g, device="cuda").to(dtype)
+        xr, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+        x, Bm, Cm = xr.reshape(B, S, H, P), Bm.reshape(B, S, G, N), Cm.reshape(B, S, G, N)
+        check(not x.is_contiguous(), "strided case: x came out contiguous")
+    else:
+        x = torch.randn(B, S, H, P, generator=g, device="cuda").to(dtype)
+        Bm, Cm = (torch.randn(B, S, G, N, generator=g, device="cuda").to(dtype) for _ in range(2))
+    dt = F.softplus(torch.randn(B, S, H, generator=g, device="cuda"))
+    A = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.3)
+    D = torch.ones(H, device="cuda")
+    return x, dt, A, Bm, Cm, D
+
+
+def ssd_checks(ssd) -> list:
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for name, B, S, H, P, G, N, chunk, dtype, strided in SSD_SHAPES:
+        args = ssd_inputs(g, B, S, H, P, G, N, dtype, strided)
+        y, st = ssd.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want_y, want_st = ssd.ssd_scan_plain(*args, chunk=chunk)
+        tol = SSD_TOL[dtype]
+        ok_y, err_y, share_y = close(y, want_y, tol)
+        ok_s, err_s, share_s = close(st, want_st, tol)
+        check(ok_y and ok_s, f"SSD kernel disagrees with plain at {name}: "
+                             f"max abs err y {err_y}, state {err_s} (tol {tol})")
+        kernel_ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), 20)
+        plain_ms = time_ms(lambda: ssd.ssd_scan_plain(*args, chunk=chunk), 3)
+        bound_ms, bound_by = ssd_bound(B, S, H, P, G, N, chunk, dtype)
+        row = dict(
+            shape=name, B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk,
+            dtype=str(dtype).replace("torch.", ""), strided=strided,
+            max_abs_err=max(err_y, err_s), max_abs_err_y=err_y, max_abs_err_state=err_s, tol=tol,
+            tol_share=max(share_y, share_s),
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY_SSD,
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        print("ssd_kernel " + json.dumps(row), flush=True)
+        rows.append(row)
+        del args, y, st, want_y, want_st
     torch.cuda.empty_cache()
     return rows
 
@@ -172,99 +285,123 @@ def kernel_checks(fa) -> list:
 # ---------------------------------------------------------------------------
 # Serving at full width
 # ---------------------------------------------------------------------------
-def close(a: torch.Tensor, b: torch.Tensor, tol: float) -> tuple:
-    diff = (a.float() - b.float()).abs()
-    return bool((diff <= tol + tol * b.float().abs()).all().item()), diff.max().item()
+def zero_counts(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
 
 
-def serve_f32_checks(configs, M, fa) -> None:
+def read_counts(kernels) -> dict:
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def check_path_counts(path: Path, counts: dict, n_layers: int, what: str) -> None:
+    """The path's own kernel once per layer; every other kernel not at all."""
+    for name, n in counts.items():
+        want = n_layers if name == path.kernel else 0
+        check(n == want, f"{path.arch} {what} launched {name} {n} times, want {want}")
+
+
+def serve_f32_checks(configs, M, path: Path, kernels) -> None:
     """f32 at full width: the kernel path against the non-kernel path, and
     prefill against token-by-token decode."""
-    cfg = dataclasses.replace(configs.get(ARCH), dtype="float32")
+    cfg = dataclasses.replace(configs.get(path.arch), dtype="float32")
     model = M.DecoderLM.from_config(cfg, seed=0, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab, (CHECK_B, CHECK_L), generator=g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (path.check_b, path.check_l), generator=g, device="cuda")
     with torch.inference_mode():
-        fa.flash_attention.launches = 0
+        zero_counts(kernels)
         logits_k, _ = M.prefill(model, cfg, {"tokens": tokens})
         torch.cuda.synchronize()
-        check(
-            fa.flash_attention.launches == cfg.n_layers,
-            f"f32 prefill launched the kernel {fa.flash_attention.launches} times, want {cfg.n_layers}",
-        )
+        check_path_counts(path, read_counts(kernels), cfg.n_layers, "f32 prefill")
         logits_x, _ = M.prefill(model, dataclasses.replace(cfg, use_kernels=False), {"tokens": tokens})
-        ok, err = close(logits_k, logits_x, MODEL_TOL)
-        print(f"serve f32 B={CHECK_B} L={CHECK_L}: kernel vs plain prefill logits max abs err {err}")
-        check(ok, f"f32 prefill logits: kernel path vs plain path differ by {err}")
-        check(bool(torch.isfinite(logits_k).all()), "f32 prefill logits not finite")
+        ok, err, _ = close(logits_k, logits_x, MODEL_TOL)
+        print(f"serve {path.arch} f32 B={path.check_b} L={path.check_l}: "
+              f"kernel vs plain prefill logits max abs err {err}", flush=True)
+        check(ok, f"{path.arch} f32 prefill logits: kernel path vs plain path differ by {err}")
+        check(bool(torch.isfinite(logits_k).all()), f"{path.arch} f32 prefill logits not finite")
 
         head = tokens[:, :CHECK_STEPS]
         logits_p, _ = M.prefill(model, cfg, {"tokens": head})
-        state = M.init_decode_state(cfg, CHECK_B, CHECK_STEPS, device="cuda")
+        state = M.init_decode_state(cfg, path.check_b, CHECK_STEPS, device="cuda")
         for pos in range(CHECK_STEPS):
             logits_d, state = M.decode_step(model, cfg, head[:, pos : pos + 1], state, pos)
-        ok, err = close(logits_p, logits_d, MODEL_TOL)
-        print(f"serve f32: prefill of {CHECK_STEPS} vs {CHECK_STEPS} decode steps max abs err {err}")
-        check(ok, f"f32 prefill vs decode logits differ by {err}")
-        check(bool(torch.isfinite(logits_d).all()), "f32 decode logits not finite")
+        ok, err, _ = close(logits_p, logits_d, MODEL_TOL)
+        print(f"serve {path.arch} f32: prefill of {CHECK_STEPS} vs {CHECK_STEPS} decode steps "
+              f"max abs err {err}", flush=True)
+        check(ok, f"{path.arch} f32 prefill vs decode logits differ by {err}")
+        check(bool(torch.isfinite(logits_d).all()), f"{path.arch} f32 decode logits not finite")
     del model
     torch.cuda.empty_cache()
 
 
-def serve_main_path(configs, M, ServeEngine, fa) -> dict:
-    """The main path: a bf16 ServeEngine on the card, counts around it."""
-    cfg = configs.get(ARCH)
+def cache_shapes(cfg, B: int, L: int) -> dict:
+    """What one prefill of B x L tokens must leave in the decode caches."""
+    if cfg.has_ssm:
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        return {
+            "state": (cfg.n_periods, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            "conv": (cfg.n_periods, B, cfg.ssm_conv - 1, conv_dim),
+        }
+    kv = (cfg.n_periods, B, L, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": kv, "v": kv}
+
+
+def serve_main_path(configs, M, ServeEngine, path: Path, kernels) -> dict:
+    """A main path: a bf16 ServeEngine on the card, counts around it."""
+    cfg = configs.get(path.arch)
     model = M.DecoderLM.from_config(cfg, seed=0)  # the card, by default
-    engine = ServeEngine(cfg, model, max_len=SERVE_L + SERVE_NEW)
+    engine = ServeEngine(cfg, model, max_len=path.serve_l + path.serve_new)
     g = torch.Generator(device="cuda").manual_seed(3)
-    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_L), generator=g, device="cuda").tolist()
+    B, L, NEW = path.serve_b, path.serve_l, path.serve_new
+    prompts = torch.randint(0, cfg.vocab, (B, L), generator=g, device="cuda").tolist()
     engine.generate(prompts, max_new_tokens=2)  # warm-up: cuBLAS handles, allocator
     torch.cuda.reset_peak_memory_stats()
 
-    fa.flash_attention.launches = 0
-    res = engine.generate(prompts, max_new_tokens=SERVE_NEW)
-    launches = fa.flash_attention.launches
+    zero_counts(kernels)
+    res = engine.generate(prompts, max_new_tokens=NEW)
+    counts = read_counts(kernels)
 
-    check(launches == cfg.n_layers, f"one prefill launched the kernel {launches} times, want {cfg.n_layers}")
-    check(len(res.tokens) == SERVE_B and all(len(t) == SERVE_NEW for t in res.tokens),
+    check_path_counts(path, counts, cfg.n_layers, "main path (one prefill)")
+    check(len(res.tokens) == B and all(len(t) == NEW for t in res.tokens),
           "wrong number of generated tokens")
     check(all(0 <= t < cfg.vocab for seq in res.tokens for t in seq), "token outside [0, vocab)")
     with torch.inference_mode():
         toks = torch.tensor(prompts, device="cuda")
         logits, (caches, _) = M.prefill(model, cfg, {"tokens": toks})
-        check(tuple(logits.shape) == (SERVE_B, cfg.vocab), f"logits shape {tuple(logits.shape)}")
-        check(bool(torch.isfinite(logits).all()), "bf16 prefill logits not finite")
-        check(tuple(caches["pos0"]["k"].shape) == (cfg.n_periods, SERVE_B, SERVE_L, cfg.n_kv_heads, cfg.head_dim),
-              "cache shape")
-    decode_tok_s = SERVE_B * (SERVE_NEW - 1) / res.decode_s
+        check(tuple(logits.shape) == (B, cfg.vocab), f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), f"{path.arch} bf16 prefill logits not finite")
+        for name, shape in cache_shapes(cfg, B, L).items():
+            got = tuple(caches["pos0"][name].shape)
+            check(got == shape, f"{path.arch} cache {name} shape {got}, want {shape}")
     stats = dict(
-        arch=ARCH, dtype=cfg.dtype, batch=SERVE_B, prompt_len=SERVE_L, new_tokens=SERVE_NEW,
+        arch=path.arch, dtype=cfg.dtype, batch=B, prompt_len=L, new_tokens=NEW,
         prefill_s=res.prefill_s, decode_s=res.decode_s,
-        prefill_tok_s=SERVE_B * SERVE_L / res.prefill_s, decode_tok_s=decode_tok_s,
-        decode_ms_per_step=res.decode_s / (SERVE_NEW - 1) * 1e3,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, flash_launches=launches,
+        prefill_tok_s=B * L / res.prefill_s, decode_tok_s=B * (NEW - 1) / res.decode_s,
+        decode_ms_per_step=res.decode_s / (NEW - 1) * 1e3,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
     )
     print("serve " + json.dumps(stats), flush=True)
-    profile_serve(M, model, cfg, toks)
+    profile_serve(M, model, cfg, toks, path)
     del model, engine
     torch.cuda.empty_cache()
     return stats
 
 
-def profile_serve(M, model, cfg, toks) -> None:
+def profile_serve(M, model, cfg, toks, path: Path) -> None:
     """Where the time goes: one prefill and one decode step, each timed
     bare on the host clock and then traced by torch.profiler for its device
     kernels.  Device busy share = kernel time / bare wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.serving.engine import grow_kv
+
     with torch.inference_mode():
         logits, (caches, kv_len) = M.prefill(model, cfg, {"tokens": toks})
-        caches = {p: {k: F.pad(v, (0, 0, 0, 0, 0, 8)) for k, v in sub.items()}
-                  for p, sub in caches.items()}
+        caches = grow_kv(caches, 8)  # K/V only: SSM caches have no sequence axis
         cur = torch.argmax(logits, -1)[:, None]
         steps = {
             "prefill": lambda: M.prefill(model, cfg, {"tokens": toks}),
-            "decode_step": lambda: M.decode_step(model, cfg, cur, (caches, kv_len), SERVE_L),
+            "decode_step": lambda: M.decode_step(model, cfg, cur, (caches, kv_len), path.serve_l),
         }
         for label, fn in steps.items():
             fn()
@@ -276,18 +413,28 @@ def profile_serve(M, model, cfg, toks) -> None:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            by_name = {}
+            by_name = {}  # device ms by kernel name, cut to 70 characters
+            names = set()
             for e in prof.events():
                 if e.device_type == torch.autograd.DeviceType.CUDA:
-                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                    names.add(e.name)
+                    key = e.name[:70]
+                    by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
             device_ms = sum(by_name.values())
-            check(device_ms > 0, f"the profiler saw no device kernel in {label}")
+            check(device_ms > 0, f"the profiler saw no device kernel in {path.arch} {label}")
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
             print("profile " + json.dumps(dict(
-                step=label, wall_ms=wall_ms, device_ms=device_ms,
-                device_busy_share=device_ms / wall_ms, kernels=len(by_name),
-                top_ms={name[:70]: ms for name, ms in top},
+                arch=path.arch, step=label, wall_ms=wall_ms, device_ms=device_ms,
+                device_busy_share=device_ms / wall_ms, kernels=len(names), top_ms=dict(top),
             )), flush=True)
+
+
+def kernel_line(name, source, replaces, launches, row) -> dict:
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+        max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+    )
 
 
 def main() -> None:
@@ -296,6 +443,7 @@ def main() -> None:
     from repro_torch import ServeEngine, configs
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
     from repro_torch.models import model as M
 
     card = card_line()
@@ -315,25 +463,29 @@ def main() -> None:
           f"({len(logs)} compiled now)", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    rows = kernel_checks(fa)
-    serve_f32_checks(configs, M, fa)
-    stats = serve_main_path(configs, M, ServeEngine, fa)
+    kernels = {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
+    flash_rows = kernel_checks(fa)
+    ssd_rows = ssd_checks(ssd)
+    serve_f32_checks(configs, M, DANUBE, kernels)
+    danube = serve_main_path(configs, M, ServeEngine, DANUBE, kernels)
+    serve_f32_checks(configs, M, MAMBA, kernels)
+    mamba = serve_main_path(configs, M, ServeEngine, MAMBA, kernels)
 
-    main_row = rows[0]
-    kernels = [dict(
-        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:34", launches=stats["flash_launches"],
-        max_abs_err=main_row["max_abs_err"], ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"],
-    )]
-    worst = max(r["max_abs_err"] / r["tol"] for r in rows)
-    print(f"kernels: flash_attention ok on {len(rows)} shapes (worst err/tol {worst:.3f}), "
-          f"{stats['flash_launches']} launches on the main path", flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    lines = [
+        kernel_line("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:34",
+                    danube["launches"]["flash_attention"], flash_rows[0]),
+        kernel_line("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssd.py:33", mamba["launches"]["ssd_scan"], ssd_rows[0]),
+    ]
+    for rows, label in ((flash_rows, "flash_attention"), (ssd_rows, "ssd_scan")):
+        worst = max(r["tol_share"] for r in rows)
+        print(f"kernels: {label} ok on {len(rows)} shapes (worst share of the tolerance "
+              f"{worst:.3f})", flush=True)
+    print(json.dumps({"kernels": lines}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the ``repro`` model zoo for one NVIDIA H100.
 
 Beside the JAX package ``repro`` (the reference), never importing it or JAX.
-This slice serves the dense decoder (prefill + greedy decode) through a
-hand-written Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+It serves the dense decoders and mamba2-130m (prefill + greedy decode)
+through hand-written Hopper kernels: flash attention
+(``csrc/flash_attention.cu``) and the Mamba-2 SSD scan (``csrc/ssd_scan.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from repro_torch.models.config import ArchConfig, ShapeConfig

@@ -7,11 +7,12 @@ Each has an oracle in kernels/ref.py with the same signature.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import ssd as _ssd
 
 
 def flash_attention(
@@ -28,3 +29,21 @@ def flash_attention(
     if q.device.type == "cpu":
         return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD chunked scan. Returns (y (B,S,H,P), state (B,H,P,N))."""
+    if x.is_cuda:
+        return _ssd.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk)
+    raise ValueError(f"ssd_scan: no kernel for device {x.device}")

@@ -1,5 +1,5 @@
-"""Full model assembly, dense decoder path: embeddings -> period stack ->
-head / decode state.  The PyTorch port of ``repro.models.model``.
+"""Full model assembly, dense and SSM decoders: embeddings -> period stack
+-> head / decode state.  The PyTorch port of ``repro.models.model``.
 
 The reference keeps each period position's parameters under
 ``params["stack"][f"pos{i}"]`` with a leading ``n_periods`` axis and scans
@@ -13,13 +13,15 @@ Entry points, as in the reference (``params`` is a ``DecoderLM``):
 
   init_params / param_shapes      parameter tree (real / meta tensors)
   forward                         token embeddings -> final hidden
-  prefill                         forward + KV decode state
+  prefill                         forward + KV/SSM decode state
   init_decode_state / decode_step one-token serving step
 
 The decode caches keep the reference layout at this boundary: per
-``pos{i}``, ``k`` and ``v`` of shape (n_periods, B, S, KV, hd).
-SSM mixers, MoE channel mixers and the patch/frame frontends are not ported
-yet (ROADMAP.md queue A); a config that needs them raises.
+``pos{i}``, ``k`` and ``v`` of shape (n_periods, B, S, KV, hd) for an
+attention position, ``state`` (n_periods, B, H, P, N) and ``conv``
+(n_periods, B, K-1, conv_dim), both f32, for an SSM position.
+MoE channel mixers and the patch/frame frontends are not ported yet
+(ROADMAP.md queue A); a config that needs them raises.
 """
 from __future__ import annotations
 
@@ -38,6 +40,12 @@ from repro_torch.models.layers import (
     mlp_param_shapes,
     rms_norm,
 )
+from repro_torch.models.ssm import (
+    ssm_block,
+    ssm_block_decode,
+    ssm_empty_carry,
+    ssm_param_shapes,
+)
 
 _F32_LEAVES = ("A_log", "D", "dt_bias")  # small SSM params stay f32
 
@@ -55,10 +63,6 @@ def resolve_device(device=None) -> torch.device:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for the parts of the model zoo this port does not run yet."""
-    if "ssm" in cfg.period:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM mixers are not ported yet (ROADMAP.md queue A, the SSM slice)"
-        )
     if "moe" in cfg.mlp_pattern:
         raise NotImplementedError(
             f"{cfg.name}: MoE channel mixers are not ported yet (ROADMAP.md queue A, the MoE slice)"
@@ -73,9 +77,13 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 # Parameter construction
 # ---------------------------------------------------------------------------
+def _mixer_shapes(cfg: ArchConfig, kind: str) -> dict:
+    return attn_param_shapes(cfg) if kind == "attn" else ssm_param_shapes(cfg)
+
+
 def _position_shapes(cfg: ArchConfig, i: int) -> dict:
     mixer, mlp = cfg.period[i], cfg.mlp_pattern[i]
-    shapes = {"norm1": (cfg.d_model,), "mixer": attn_param_shapes(cfg)}
+    shapes = {"norm1": (cfg.d_model,), "mixer": _mixer_shapes(cfg, mixer)}
     if mlp != "none":
         shapes["norm2"] = (cfg.d_model,)
         shapes["mlp"] = mlp_param_shapes(cfg)
@@ -110,11 +118,17 @@ def _init_tree(g, device, tree, cfg: ArchConfig, stacked: int = 0):
 def init_params(
     cfg: ArchConfig, generator: Optional[torch.Generator] = None, device=None
 ) -> Dict:
-    """The reference's parameter tree, drawn on the generator's device (or
-    on ``device``; the meta device gives shapes without allocating).  Torch
-    and JAX streams differ, so values never match the reference's."""
+    """The reference's parameter tree, drawn on the generator's device, or
+    else on ``device`` (the card by default) from a generator seeded 0; the
+    meta device gives shapes without allocating.  Torch and JAX streams
+    differ, so values never match the reference's."""
     check_supported(cfg)
-    device = generator.device if generator is not None else torch.device(device)
+    if generator is not None:
+        device = generator.device
+    else:
+        device = resolve_device(device)
+        if device.type != "meta":
+            generator = torch.Generator(device=device).manual_seed(0)
     dt = cfg.torch_dtype
     params: Dict = {"embed": dense_init(generator, (cfg.vocab, cfg.d_model), dt, cfg.d_model, device)}
     if not cfg.tie_embeddings:
@@ -149,7 +163,7 @@ class Block(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder: ``embed``, ``layers`` (per period repetition, an
+    """Decoder: ``embed``, ``layers`` (per period repetition, an
     ``nn.ModuleDict`` of ``pos{i}`` blocks), ``final_norm`` and ``head``.
     Built from a reference-layout tree whose leaves are checked against
     ``param_shapes(cfg)``; serving needs no gradients, so every parameter
@@ -221,16 +235,22 @@ def _period_forward(
     collect_cache: bool,
 ):
     """One period over a full sequence (prefill).  Returns (x, caches) where
-    caches[f"pos{i}"] holds dict(k, v) when ``collect_cache`` — the roped
-    K/V that ``attention_block`` made (the reference recomputes them; in f32
-    the two are equal)."""
+    caches[f"pos{i}"] holds the decode carry when ``collect_cache``: for
+    attention dict(k, v), the roped K/V that ``attention_block`` made (the
+    reference recomputes them; in f32 the two are equal); for SSM
+    dict(state, conv)."""
     caches = {}
-    for i, mlp in enumerate(cfg.mlp_pattern):
+    for i, (mixer, mlp) in enumerate(zip(cfg.period, cfg.mlp_pattern)):
         blk = period[f"pos{i}"]
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
-        y, (k, v) = attention_block(blk.mixer, h, cfg, positions=positions)
+        if mixer == "attn":
+            y, (k, v) = attention_block(blk.mixer, h, cfg, positions=positions)
+            carry = {"k": k, "v": v}
+        else:
+            y, (state, conv) = ssm_block(blk.mixer, h, cfg)
+            carry = {"state": state, "conv": conv}
         if collect_cache:
-            caches[f"pos{i}"] = {"k": k, "v": v}
+            caches[f"pos{i}"] = carry
         x = x + y
         if mlp != "none":
             x = _channel_mix(blk, x, cfg)
@@ -245,17 +265,24 @@ def _period_decode(
     cache_pos: int,
     kv_len: torch.Tensor,
 ) -> torch.Tensor:
-    """One period for one new token; writes its K/V into ``cslice`` in place."""
+    """One period for one new token.  Writes into ``cslice`` in place (the
+    reference returns updated copies): an attention position's K/V at
+    ``cache_pos``, an SSM position's new state and conv tail over the old."""
     # made on the device: a host-to-device copy would wait for the queue
     positions = torch.arange(cache_pos, cache_pos + 1, device=x.device)
-    for i, mlp in enumerate(cfg.mlp_pattern):
+    for i, (mixer, mlp) in enumerate(zip(cfg.period, cfg.mlp_pattern)):
         blk = period[f"pos{i}"]
         c = cslice[f"pos{i}"]
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
-        y, _ = attention_block(
-            blk.mixer, h, cfg, positions=positions,
-            kv_cache=(c["k"], c["v"]), cache_pos=cache_pos, kv_len=kv_len,
-        )
+        if mixer == "attn":
+            y, _ = attention_block(
+                blk.mixer, h, cfg, positions=positions,
+                kv_cache=(c["k"], c["v"]), cache_pos=cache_pos, kv_len=kv_len,
+            )
+        else:
+            y, (state, conv) = ssm_block_decode(blk.mixer, h, cfg, (c["state"], c["conv"]))
+            c["state"].copy_(state)
+            c["conv"].copy_(conv)
         x = x + y
         if mlp != "none":
             x = _channel_mix(blk, x, cfg)
@@ -311,18 +338,24 @@ def prefill(params: DecoderLM, cfg: ArchConfig, batch: Dict):
 def init_decode_state(
     cfg: ArchConfig, batch: int, max_len: int, device=None
 ) -> Tuple[Dict, torch.Tensor]:
-    """Empty decode state sized for a ``max_len`` context.  K and V are
-    separate tensors: decode writes into them in place."""
+    """Empty decode state sized for a ``max_len`` context.  Every cache is
+    a tensor of its own (K and V too): decode writes into them in place."""
     check_supported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_periods, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    caches = {
-        f"pos{i}": {
-            "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        }
-        for i in range(len(cfg.period))
-    }
+    caches = {}
+    for i, mixer in enumerate(cfg.period):
+        if mixer == "attn":
+            shape = (cfg.n_periods, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            caches[f"pos{i}"] = {
+                "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            }
+        else:
+            st, conv = ssm_empty_carry(cfg, batch, device)
+            caches[f"pos{i}"] = {
+                "state": torch.stack([st] * cfg.n_periods),
+                "conv": torch.stack([conv] * cfg.n_periods),
+            }
     kv_len = torch.zeros((batch,), dtype=torch.int32, device=device)
     return caches, kv_len
 

@@ -1,5 +1,5 @@
 """Batched serving engine: padded-prompt batched prefill + one-token decode
-steps against the model's KV cache, with per-sequence lengths.  The PyTorch
+steps against the model's KV/SSM cache, with per-sequence lengths.  The PyTorch
 port of ``repro.serving.engine``.
 
 On the card the clock is read only after ``torch.cuda.synchronize()``, so
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List
+from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +28,20 @@ class GenerationResult:
     @property
     def total_new_tokens(self) -> int:
         return sum(len(t) for t in self.tokens)
+
+
+def grow_kv(caches: Dict, grow: int) -> Dict:
+    """The prefill caches with ``grow`` more slots on the sequence axis (2)
+    of every K and V, so decode steps have slots to write into.  SSM
+    positions' ``state`` and ``conv`` have no sequence axis and pass as
+    they are."""
+    return {
+        pos: {
+            name: F.pad(t, (0, 0, 0, 0, 0, grow)) if name in ("k", "v") else t
+            for name, t in sub.items()
+        }
+        for pos, sub in caches.items()
+    }
 
 
 class ServeEngine:
@@ -65,12 +79,7 @@ class ServeEngine:
         B, L = toks.shape
         t0 = self._clock()
         logits, (caches, kv_len) = M.prefill(self.params, self.cfg, {"tokens": toks})
-        # grow the KV caches (axis 2) so decode steps have slots to write into
-        grow = max_new_tokens
-        caches = {
-            pos: {k: F.pad(v, (0, 0, 0, 0, 0, grow)) for k, v in sub.items()}
-            for pos, sub in caches.items()
-        }
+        caches = grow_kv(caches, max_new_tokens)
         state = (caches, kv_len)
         prefill_s = self._clock() - t0
 

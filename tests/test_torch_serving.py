@@ -1,6 +1,7 @@
 """The port's serving engine: twins of tests/test_serving.py on the dense
-archs, greedy tokens equal to the reference engine's exactly on carried
-weights, and the device rule (the card unless the caller asks for the CPU)."""
+archs and mamba2-130m, greedy tokens equal to the reference engine's exactly
+on carried weights, and the device rule (the card unless the caller asks for
+the CPU)."""
 import dataclasses
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro_torch.weights import params_from_reference  # noqa: E402
 pytestmark = pytest.mark.slow  # compiles XLA programs, like tests/test_serving.py
 
 DENSE = ["internlm2-20b", "h2o-danube-3-4b"]
+PORTED = DENSE + ["mamba2-130m"]
 
 
 def _engine(arch, seed=0):
@@ -34,7 +36,7 @@ def _prompts(vocab, B, L, seed=1):
     return np.random.default_rng(seed).integers(0, vocab, (B, L)).tolist()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_generate_matches_manual_decode(arch):
     cfg, model, engine = _engine(arch)
     B, L, N = 2, 16, 6
@@ -45,7 +47,10 @@ def test_generate_matches_manual_decode(arch):
     # manual loop: prefill then N-1 greedy decode steps
     with torch.inference_mode():
         logits, (caches, kv_len) = TM.prefill(model, cfg, {"tokens": torch.tensor(prompts)})
-        caches = {pos: {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, N)) for k, v in sub.items()}
+        # grow only K/V (axis 2), as the reference's test does; an SSM
+        # position's state and conv tail have no sequence axis
+        caches = {pos: {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, N)) if k in ("k", "v") else v)
+                        for k, v in sub.items()}
                   for pos, sub in caches.items()}
         state = (caches, kv_len)
         tok = torch.argmax(logits, -1)[:, None]
@@ -58,7 +63,7 @@ def test_generate_matches_manual_decode(arch):
     assert res.prefill_s >= 0 and res.decode_s >= 0 and res.total_new_tokens == B * N
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_greedy_tokens_equal_reference_engine(arch):
     rcfg = dataclasses.replace(rconfigs.reduce_for_smoke(rconfigs.get(arch)), dtype="float32")
     tcfg = dataclasses.replace(tconfigs.reduce_for_smoke(tconfigs.get(arch)), dtype="float32")
