@@ -8,24 +8,34 @@ its check does not hold:
 
 1. the card's name and power limit; TF32 switched off for f32 products;
 2. build: every CUDA source of the port compiled by nvcc for sm_90a, all
-   started together;
-3. kernels against plain: the flash-attention kernel and the SSD-scan kernel
-   each against its plain PyTorch version on the card, at its serving
-   path's shape and a sweep of others, with the kernel's time, the plain
-   version's, one PyTorch call's where one computes the same function (SDPA
-   for attention, the yardstick, never used by the port; none for the SSD
-   scan) and the card's bound;
+   started together; ptxas's registers, shared memory and spills of each
+   kernel (a spill in a tensor-core kernel fails the run), and the count of
+   tensor-core instructions (HMMA, HGMMA) in the SASS of each tensor-core
+   kernel's library, from ``cuobjdump -sass`` (none found, or no cuobjdump,
+   fails the run);
+3. kernels against plain: flash attention and the SSD scan, each through its
+   dtype rule (bf16 to the tensor-core kernel, f32 to the CUDA-core kernel),
+   against its plain PyTorch version on the card, at its serving path's
+   shape and a sweep of others, with the kernel's time, for bf16 the
+   CUDA-core kernel's time on the same inputs (``previous_ms``, timed in
+   turns: new, old, old, new), the plain version's, one PyTorch call's where
+   one computes the same function (SDPA for attention — with ``is_causal``
+   and no mask unless the window bites, ``library_path`` says which — the
+   yardstick, never used by the port; none for the SSD scan) and the card's
+   bound;
 4. serve h2o-danube-3-4b at full width from seeded random weights drawn on
-   the card: f32 prefill through the kernel against the non-kernel path and
-   prefill against step-by-step decode, then its main path — a bf16
+   the card: f32 prefill through the CUDA-core kernel against the non-kernel
+   path and prefill against step-by-step decode, then its main path — a bf16
    ``ServeEngine`` answering 4 prompts of 1024 tokens with 32 greedy tokens
-   each — with the kernels' launch counts read around it, and a profile of
-   one prefill and one decode step (device busy share, the kernels that take
-   the time);
+   each, 24 tensor-core flash launches and no other kernel per prefill —
+   with every launch count read around it, and a profile of one prefill and
+   one decode step (device busy share, the kernels that take the time);
 5. the same for mamba2-130m at full width and full depth: f32 checks at
    2 x 1000 tokens and 8 tokens, then its main path — 8 prompts of 2048
-   tokens with 64 greedy tokens each, 24 SSD-kernel launches per prefill;
-6. one JSON line of the kernels, the nvidia-smi line, and the result line.
+   tokens with 64 greedy tokens each, 24 tensor-core SSD launches per
+   prefill;
+6. one JSON line of the kernel variants, the nvidia-smi line, and the result
+   line.
 
 Imports nothing of JAX or the reference package.
 """
@@ -34,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,7 +73,9 @@ class Path:
     new tokens, and the f32 checks' batch and prompt length."""
 
     arch: str
-    kernel: str  # the hand kernel its prefill runs in every layer
+    family: str  # the dispatcher its prefill calls in every layer
+    kernel: str  # the kernel variant its bf16 prefill launches in every layer
+    f32_kernel: str  # the variant its f32 prefill launches
     serve_b: int
     serve_l: int
     serve_new: int
@@ -70,8 +83,10 @@ class Path:
     check_l: int
 
 
-DANUBE = Path("h2o-danube-3-4b", "flash_attention", 4, 1024, 32, 2, 512)
-MAMBA = Path("mamba2-130m", "ssd_scan", 8, 2048, 64, 2, 1000)  # 1000: padded to 1024 in the block
+DANUBE = Path("h2o-danube-3-4b", "flash_attention", "flash_attention_tc",
+              "flash_attention_cuda_core", 4, 1024, 32, 2, 512)
+MAMBA = Path("mamba2-130m", "ssd_scan", "ssd_scan_tc", "ssd_scan_cuda_core",
+             8, 2048, 64, 2, 1000)  # 1000: padded to 1024 in the block
 CHECK_STEPS = 8
 
 
@@ -144,11 +159,33 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def sdpa(q, k, v, causal, window, mask):
+def window_bites(S: int, window) -> bool:
+    """Whether a sliding window hides any key a causal mask leaves visible."""
+    return window is not None and window < S
+
+
+def sdpa(q, k, v, causal, mask):
+    """SDPA on the same function: the explicit mask only where the window
+    bites (it keeps SDPA off its flash backend), else ``is_causal``."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if window is None:
+    if mask is None:
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def causal_window_mask(S: int, window: int) -> torch.Tensor:
+    pos = torch.arange(S, device="cuda")
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+
+def time_in_turns(new, old, iters: int) -> tuple:
+    """(new ms, old ms), each the mean of two timings taken new, old, old,
+    new, so drift on the card falls on both alike."""
+    a = time_ms(new, iters)
+    b = time_ms(old, iters)
+    c = time_ms(old, iters)
+    d = time_ms(new, iters)
+    return (a + d) / 2, (b + c) / 2
 
 
 # name, B, S, H, KV, hd, dtype, causal, window
@@ -178,6 +215,10 @@ def close(a: torch.Tensor, b: torch.Tensor, tol: float) -> tuple:
     return share <= 1.0, diff.max().item(), share
 
 
+def launched(fn, before: int, what: str) -> None:
+    check(fn.launches == before + 1, f"{what}: {fn.__name__} did not launch exactly once")
+
+
 def kernel_checks(fa) -> list:
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -185,26 +226,47 @@ def kernel_checks(fa) -> list:
         q, k, v = (
             torch.randn(B, S, n, hd, generator=g, device="cuda").to(dtype) for n in (H, KV, KV)
         )
+        tc = dtype == torch.bfloat16  # the dtype rule (all these inputs are aligned)
+        kern = fa.flash_attention_tc if tc else fa.flash_attention_cuda_core
+        before = kern.launches
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        launched(kern, before, f"flash {name}")
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = KERNEL_TOL[dtype]
         ok, err, share = close(out, want, tol)
         check(ok, f"flash kernel disagrees with plain at {name}: max abs err {err} (tol {tol})")
-        mask = None
-        if window is not None:
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window), 20)
+        run = lambda: kern(q, k, v, causal=causal, window=window)  # noqa: E731
+        prev_share = None
+        if tc:
+            def prev():
+                return fa.flash_attention_cuda_core(q, k, v, causal=causal, window=window)
+
+            ok, _, prev_share = close(prev(), want, tol)
+            check(ok, f"the CUDA-core flash kernel disagrees with plain at {name} (bf16)")
+            kernel_ms, previous_ms = time_in_turns(run, prev, 20)
+        else:  # f32 runs on the CUDA-core kernel, unchanged: it is its own previous
+            kernel_ms = previous_ms = time_ms(run, 20)
         plain_ms = time_ms(
             lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window), 3
         )
-        library_ms = time_ms(lambda: sdpa(q, k, v, causal, window, mask), 20)
+        mask = causal_window_mask(S, window) if window_bites(S, window) else None
+        library_ms = time_ms(lambda: sdpa(q, k, v, causal, mask), 20)
+        library_path = "mask" if mask is not None else ("is_causal" if causal else "no_mask")
+        # the explicit mask where the window does not bite: the slower masked path, for comparison
+        masked_ms = None
+        if window is not None and mask is None:
+            full = causal_window_mask(S, window)
+            masked_ms = time_ms(lambda: sdpa(q, k, v, causal, full), 20)
+            del full
         bound_ms, bound_by = bound(B, S, S, H, KV, hd, dtype, causal, window)
         row = dict(
             shape=name, B=B, S=S, H=H, KV=KV, hd=hd, dtype=str(dtype).replace("torch.", ""),
-            causal=causal, window=window, max_abs_err=err, tol=tol, tol_share=share, ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            causal=causal, window=window, variant=fa.TENSOR_CORE if tc else fa.CUDA_CORE,
+            max_abs_err=err, tol=tol, tol_share=share, previous_tol_share=prev_share,
+            ms=kernel_ms, previous_ms=previous_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library_path=library_path, library_mask_ms=masked_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
         )
         print("kernel " + json.dumps(row), flush=True)
         rows.append(row)
@@ -256,24 +318,40 @@ def ssd_checks(ssd) -> list:
     rows = []
     for name, B, S, H, P, G, N, chunk, dtype, strided in SSD_SHAPES:
         args = ssd_inputs(g, B, S, H, P, G, N, dtype, strided)
+        tc = dtype == torch.bfloat16  # the dtype rule (all these inputs are aligned)
+        kern = ssd.ssd_scan_tc if tc else ssd.ssd_scan_cuda_core
+        before = kern.launches
         y, st = ssd.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
+        launched(kern, before, f"SSD {name}")
         want_y, want_st = ssd.ssd_scan_plain(*args, chunk=chunk)
         tol = SSD_TOL[dtype]
         ok_y, err_y, share_y = close(y, want_y, tol)
         ok_s, err_s, share_s = close(st, want_st, tol)
         check(ok_y and ok_s, f"SSD kernel disagrees with plain at {name}: "
                              f"max abs err y {err_y}, state {err_s} (tol {tol})")
-        kernel_ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), 20)
+        run = lambda: kern(*args, chunk=chunk)  # noqa: E731
+        prev_share = None
+        if tc:
+            prev = lambda: ssd.ssd_scan_cuda_core(*args, chunk=chunk)  # noqa: E731
+            py, pst = prev()
+            oy, sy = close(py, want_y, tol)[::2]
+            os_, ss = close(pst, want_st, tol)[::2]
+            check(oy and os_, f"the CUDA-core SSD kernel disagrees with plain at {name} (bf16)")
+            prev_share = max(sy, ss)
+            kernel_ms, previous_ms = time_in_turns(run, prev, 20)
+        else:  # f32 runs on the CUDA-core kernel, unchanged: it is its own previous
+            kernel_ms = previous_ms = time_ms(run, 20)
         plain_ms = time_ms(lambda: ssd.ssd_scan_plain(*args, chunk=chunk), 3)
         bound_ms, bound_by = ssd_bound(B, S, H, P, G, N, chunk, dtype)
         row = dict(
             shape=name, B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk,
             dtype=str(dtype).replace("torch.", ""), strided=strided,
+            variant=ssd.TENSOR_CORE if tc else ssd.CUDA_CORE,
             max_abs_err=max(err_y, err_s), max_abs_err_y=err_y, max_abs_err_state=err_s, tol=tol,
-            tol_share=max(share_y, share_s),
-            ms=kernel_ms, plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY_SSD,
-            bound_ms=bound_ms, bound_by=bound_by,
+            tol_share=max(share_y, share_s), previous_tol_share=prev_share,
+            ms=kernel_ms, previous_ms=previous_ms, plain_ms=plain_ms, library_ms=None,
+            library=NO_LIBRARY_SSD, bound_ms=bound_ms, bound_by=bound_by,
         )
         print("ssd_kernel " + json.dumps(row), flush=True)
         rows.append(row)
@@ -294,16 +372,18 @@ def read_counts(kernels) -> dict:
     return {name: fn.launches for name, fn in kernels.items()}
 
 
-def check_path_counts(path: Path, counts: dict, n_layers: int, what: str) -> None:
-    """The path's own kernel once per layer; every other kernel not at all."""
+def check_path_counts(path: Path, kernel: str, counts: dict, n_layers: int, what: str) -> None:
+    """The path's dispatcher and the one kernel variant it should pick once
+    per layer; every other count not at all."""
     for name, n in counts.items():
-        want = n_layers if name == path.kernel else 0
+        want = n_layers if name in (path.family, kernel) else 0
         check(n == want, f"{path.arch} {what} launched {name} {n} times, want {want}")
 
 
-def serve_f32_checks(configs, M, path: Path, kernels) -> None:
+def serve_f32_checks(configs, M, path: Path, kernels) -> dict:
     """f32 at full width: the kernel path against the non-kernel path, and
-    prefill against token-by-token decode."""
+    prefill against token-by-token decode.  Returns the launch counts of the
+    f32 kernel-path prefill."""
     cfg = dataclasses.replace(configs.get(path.arch), dtype="float32")
     model = M.DecoderLM.from_config(cfg, seed=0, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -312,7 +392,8 @@ def serve_f32_checks(configs, M, path: Path, kernels) -> None:
         zero_counts(kernels)
         logits_k, _ = M.prefill(model, cfg, {"tokens": tokens})
         torch.cuda.synchronize()
-        check_path_counts(path, read_counts(kernels), cfg.n_layers, "f32 prefill")
+        f32_counts = read_counts(kernels)
+        check_path_counts(path, path.f32_kernel, f32_counts, cfg.n_layers, "f32 prefill")
         logits_x, _ = M.prefill(model, dataclasses.replace(cfg, use_kernels=False), {"tokens": tokens})
         ok, err, _ = close(logits_k, logits_x, MODEL_TOL)
         print(f"serve {path.arch} f32 B={path.check_b} L={path.check_l}: "
@@ -332,6 +413,7 @@ def serve_f32_checks(configs, M, path: Path, kernels) -> None:
         check(bool(torch.isfinite(logits_d).all()), f"{path.arch} f32 decode logits not finite")
     del model
     torch.cuda.empty_cache()
+    return f32_counts
 
 
 def cache_shapes(cfg, B: int, L: int) -> dict:
@@ -361,7 +443,7 @@ def serve_main_path(configs, M, ServeEngine, path: Path, kernels) -> dict:
     res = engine.generate(prompts, max_new_tokens=NEW)
     counts = read_counts(kernels)
 
-    check_path_counts(path, counts, cfg.n_layers, "main path (one prefill)")
+    check_path_counts(path, path.kernel, counts, cfg.n_layers, "main path (one prefill)")
     check(len(res.tokens) == B and all(len(t) == NEW for t in res.tokens),
           "wrong number of generated tokens")
     check(all(0 <= t < cfg.vocab for seq in res.tokens for t in seq), "token outside [0, vocab)")
@@ -429,12 +511,57 @@ def profile_serve(M, model, cfg, toks, path: Path) -> None:
             )), flush=True)
 
 
-def kernel_line(name, source, replaces, launches, row) -> dict:
+def kernel_line(name, variant, source, replaces, launches, path, row) -> dict:
     return dict(
-        name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-        max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+        name=name, variant=variant, dtype=row["dtype"], route="cuda", source=source,
+        replaces=replaces, launches=launches, launches_on=path, shape=row["shape"],
+        max_abs_err=row["max_abs_err"], ms=row["ms"], previous_ms=row["previous_ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=row["library_ms"], library_path=row.get("library_path"),
     )
+
+
+TC_SOURCES = ("flash_attention_tc", "ssd_scan_tc")  # the tensor-core kernels' sources
+
+
+def cuobjdump() -> str:
+    """cuobjdump from the CUDA toolkit, or the copy Triton carries."""
+    import importlib.util
+    import shutil
+
+    found = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        found.append(os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    for path in found:
+        if path and os.path.exists(path):
+            return path
+    fail("no cuobjdump in the CUDA toolkit or under triton/backends/nvidia/bin")
+
+
+def build_phase(_build) -> None:
+    """Build every source; print ptxas's report of each kernel; fail on a
+    spill in a tensor-core kernel or on a tensor-core library whose SASS has
+    no tensor-core instruction."""
+    t0 = time.monotonic()
+    logs = _build.build()
+    print(f"build: {_build.sources()} in {time.monotonic() - t0:.2f} s "
+          f"({len(logs)} compiled now)", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {name}: {line.strip()}")
+                if name in TC_SOURCES and "spill" in line:
+                    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+                    check(not any(spills), f"ptxas reports spills in {name}: {line.strip()}")
+    tool = cuobjdump()
+    for name in TC_SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+        print(f"sass {name}: " + json.dumps(counts), flush=True)
+        check(sum(counts.values()) > 0, f"no tensor-core instruction in the SASS of {name}")
 
 
 def main() -> None:
@@ -456,31 +583,38 @@ def main() -> None:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}",
         flush=True,
     )
+    build_phase(_build)
 
-    t0 = time.monotonic()
-    logs = _build.build()
-    print(f"build: {_build.sources()} in {time.monotonic() - t0:.2f} s "
-          f"({len(logs)} compiled now)", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}")
-
-    kernels = {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
+    kernels = {
+        fn.__name__: fn
+        for fn in (fa.flash_attention, fa.flash_attention_tc, fa.flash_attention_cuda_core,
+                   ssd.ssd_scan, ssd.ssd_scan_tc, ssd.ssd_scan_cuda_core)
+    }
     flash_rows = kernel_checks(fa)
     ssd_rows = ssd_checks(ssd)
-    serve_f32_checks(configs, M, DANUBE, kernels)
+    danube_f32 = serve_f32_checks(configs, M, DANUBE, kernels)
     danube = serve_main_path(configs, M, ServeEngine, DANUBE, kernels)
-    serve_f32_checks(configs, M, MAMBA, kernels)
+    mamba_f32 = serve_f32_checks(configs, M, MAMBA, kernels)
     mamba = serve_main_path(configs, M, ServeEngine, MAMBA, kernels)
 
+    flash_src, ssd_src = "src/repro/kernels/flash_attention.py:34", "src/repro/kernels/ssd.py:33"
+    f32_row = lambda rows: next(r for r in rows if r["dtype"] == "float32")  # noqa: E731
+    main_path, f32_path = "bf16 main path, one prefill", "f32 full-width prefill check"
     lines = [
-        kernel_line("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                    "src/repro/kernels/flash_attention.py:34",
-                    danube["launches"]["flash_attention"], flash_rows[0]),
-        kernel_line("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-                    "src/repro/kernels/ssd.py:33", mamba["launches"]["ssd_scan"], ssd_rows[0]),
+        kernel_line("flash_attention", fa.TENSOR_CORE, "src/repro_torch/csrc/flash_attention_tc.cu",
+                    flash_src, danube["launches"]["flash_attention_tc"], main_path, flash_rows[0]),
+        kernel_line("flash_attention", fa.CUDA_CORE, "src/repro_torch/csrc/flash_attention.cu",
+                    flash_src, danube_f32["flash_attention_cuda_core"], f32_path,
+                    f32_row(flash_rows)),
+        kernel_line("ssd_scan", ssd.TENSOR_CORE, "src/repro_torch/csrc/ssd_scan_tc.cu", ssd_src,
+                    mamba["launches"]["ssd_scan_tc"], main_path, ssd_rows[0]),
+        kernel_line("ssd_scan", ssd.CUDA_CORE, "src/repro_torch/csrc/ssd_scan.cu", ssd_src,
+                    mamba_f32["ssd_scan_cuda_core"], f32_path, f32_row(ssd_rows)),
     ]
+    for line in lines[::2]:
+        check(line["ms"] < line["previous_ms"],
+              f"{line['name']} tensor-core kernel {line['ms']} ms is not faster than the "
+              f"CUDA-core kernel's {line['previous_ms']} ms at the main-path shape")
     for rows, label in ((flash_rows, "flash_attention"), (ssd_rows, "ssd_scan")):
         worst = max(r["tol_share"] for r in rows)
         print(f"kernels: {label} ok on {len(rows)} shapes (worst share of the tolerance "

@@ -3,8 +3,9 @@
 Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, under ``build/kernels`` at the
 root of the checkout (a directory ``.gitignore`` lists).  The library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and a stale library is never loaded.  Nothing here runs at import time.
+name carries a hash of its source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # the shared headers
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,36 +1,50 @@
-"""Mamba-2 SSD chunked scan on Hopper: the wrapper of the hand-written CUDA
-kernel ``csrc/ssd_scan.cu``, and its plain PyTorch version.
+"""Mamba-2 SSD chunked scan on Hopper: the wrappers of the two hand-written
+CUDA kernels, the rule that picks one, and the plain PyTorch version.
 
-The kernel replaces ``src/repro/kernels/ssd.py::_ssd_kernel``, the Pallas
-TPU kernel, and computes the same function: x (B, S, H, P), dt (B, S, H)
+Both kernels replace ``src/repro/kernels/ssd.py::_ssd_kernel``, the Pallas
+TPU kernel, and compute the same function: x (B, S, H, P), dt (B, S, H)
 f32, A and D (H,) f32, B/C (B, S, G, N) with head h reading group
 h // (H // G); per (b, h) an f32 (P, N) state is carried over chunks of
 ``chunk`` steps, ``a_cum = cumsum(dt·A)``, the intra-chunk product
 ``(C Bᵀ ∘ L ∘ dt_j) x`` with ``L[i, j] = exp(a_i − a_j)`` for i ≥ j, the
 inter-chunk term ``(C Sᵀ) ∘ exp(a_cum)``, the state update
 ``S' = exp(a_tot) S + xᵀ(exp(a_tot − a_cum)·dt·B)``; it returns
-``y + D·x`` rounded once to x's dtype and the final state in f32.  x/B/C
-are f32 or bf16; chunk ≤ 128, P ≤ 64, N ≤ 128 (mamba2-130m: 128, 64, 128).
+``y + D·x`` rounded once to x's dtype and the final state in f32.  chunk ≤
+128, P ≤ 64, N ≤ 128 (mamba2-130m: 128, 64, 128).  x, B and C are read
+through their strides (x is a slice of the fused xBC activation).
 
 What bounds it on the card: 2Q(QN + QP + 2NP) FLOPs per (b, h, chunk)
-against a few bytes per row, so tensor-core FLOPs at these widths.  This
-first version runs one block per (b, h) that loops over the chunks with
-the state in shared memory and every product an f32 FMA on the CUDA cores;
-it reads x, B and C through their strides (x is a slice of the fused xBC
-activation, so its row stride is the conv width), which removes the Pallas
-wrapper's four transposes.  It is far from the tensor-core bound; wgmma,
-TMA and chunk-parallel state passing are the later steps (PERF.md holds
-its measured times).
+against a few bytes per row, so tensor-core FLOPs at these widths.  The two
+variants, each one block per (b, h) looping over the chunks:
 
-``ssd_scan`` launches the kernel and only takes CUDA tensors; it counts its
-launches in ``ssd_scan.launches``.  ``ssd_scan_plain`` is the same function
-in PyTorch (the Pallas kernel's chunk loop): the CPU path and the yardstick
-the kernel is held against on the card.
+- ``tensor_core`` (``csrc/ssd_scan_tc.cu``, bf16 x/B/C only): the four
+  products on the tensor cores as ``mma.sync.m16n8k16`` with f32
+  accumulators, bf16 tiles in 89 KB of shared memory (two blocks an SM), the
+  state in registers.  Operand rounding: x, B and C go in as they are; the
+  f32 intermediates M, S and w·x are each split into bf16 hi + lo and
+  multiplied twice (about 2⁻¹⁶ relative; plain bf16 rounding of them missed
+  the 2e-2 tolerance by up to 8x, ``tests/test_torch_kernels_tc.py``).
+- ``cuda_core`` (``csrc/ssd_scan.cu``, f32 and bf16): every product an f32
+  FMA on the CUDA cores, the state in shared memory.  f32 stays here: TF32
+  would miss the f32 tolerance (2e-4).
+
+**The dtype rule** (``variant``): bf16 x/B/C with P and N multiples of 8,
+batch/sequence/head strides of x, B and C multiples of 8 elements and
+16-byte-aligned bases (what 16-byte cp.async needs) go to ``tensor_core``;
+every other input — f32, or bf16 that fails the alignment — goes to
+``cuda_core``.  Each variant launches or raises; neither falls back to the
+other.
+
+``ssd_scan`` applies the rule and counts every launch in
+``ssd_scan.launches``; ``ssd_scan_tc`` and ``ssd_scan_cuda_core`` launch one
+variant each and count their own launches.  ``ssd_scan_plain`` is the same
+function in PyTorch (the Pallas kernel's chunk loop): the CPU path and the
+yardstick the kernels are held against on the card.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -38,6 +52,9 @@ from repro_torch.kernels import _build
 
 CHUNK_MAX, P_MAX, N_MAX = 128, 64, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
 
 def _kernel():
@@ -50,6 +67,39 @@ def _kernel():
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _tc_kernel():
+    lib = _build.load("ssd_scan_tc")
+    fn = lib.ssd_scan_tc_fwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    lib.ssd_scan_tc_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def variant(
+    dtype: torch.dtype, P: int, N: int, strides: Sequence[int], data_ptrs: Sequence[int]
+) -> str:
+    """The dtype rule: ``"tensor_core"`` for bf16 x/B/C that 16-byte cp.async
+    can read (P and N multiples of 8, every batch/sequence/head stride of x,
+    B and C a multiple of 8 elements, every base 16-byte aligned), else
+    ``"cuda_core"``.  Pure Python: it reads no tensor."""
+    aligned = (
+        P % 8 == 0
+        and N % 8 == 0
+        and all(s % 8 == 0 for s in strides)
+        and all(p % 16 == 0 for p in data_ptrs)
+    )
+    return TENSOR_CORE if dtype == torch.bfloat16 and aligned else CUDA_CORE
+
+
+def _variant_of(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor) -> str:
+    strides = [s for t in (x, Bm, Cm) for s in t.stride()[:3]]
+    return variant(x.dtype, x.shape[3], Bm.shape[3], strides, [t.data_ptr() for t in (x, Bm, Cm)])
 
 
 def _check(x, dt, A, Bm, Cm, D, chunk: int) -> None:
@@ -107,31 +157,69 @@ def ssd_scan(
     *,
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on x's current stream; returns (y (B,S,H,P) in
-    x's dtype, final state (B,H,P,N) f32).  Raises on input the kernel does
-    not take, and if the launch is refused."""
+    """Launch the variant the dtype rule picks on x's current stream;
+    returns (y (B,S,H,P) in x's dtype, final state (B,H,P,N) f32).  Raises on
+    input the kernels do not take, and if the launch is refused."""
     _check(x, dt, A, Bm, Cm, D, chunk)
+    if _variant_of(x, Bm, Cm) == TENSOR_CORE:
+        out = ssd_scan_tc(x, dt, A, Bm, Cm, D, chunk=chunk)
+    else:
+        out = ssd_scan_cuda_core(x, dt, A, Bm, Cm, D, chunk=chunk)
+    ssd_scan.launches += 1
+    return out
+
+
+ssd_scan.launches = 0
+
+
+def _launch(fn, err, x, dt, A, Bm, Cm, D, extra, chunk):
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
-    lib = _kernel()
     with torch.cuda.device(x.device):
-        rc = lib.ssd_scan_fwd(
+        rc = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             D.data_ptr(), y.data_ptr(), state.data_ptr(),
-            _DTYPE_CODES[x.dtype], Bb, S, H, P, G, N, chunk,
+            *extra, Bb, S, H, P, G, N, chunk,
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
-        msg = lib.ssd_scan_error_string(rc).decode()
-        raise RuntimeError(f"ssd_scan kernel launch failed: {msg} (cudaError {rc})")
-    ssd_scan.launches += 1
+        raise RuntimeError(f"{fn.__name__} launch failed: {err(rc).decode()} (cudaError {rc})")
     return y, state
 
 
-ssd_scan.launches = 0
+def ssd_scan_tc(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core kernel (bf16 x/B/C, cp.async-aligned input only)."""
+    _check(x, dt, A, Bm, Cm, D, chunk)
+    if _variant_of(x, Bm, Cm) != TENSOR_CORE:
+        raise ValueError(
+            "ssd_scan_tc takes bf16 x/B/C with P, N and strides multiples of 8 and "
+            f"16-byte-aligned bases; got {x.dtype}, P {x.shape[3]}, N {Bm.shape[3]}"
+        )
+    lib = _tc_kernel()
+    out = _launch(lib.ssd_scan_tc_fwd, lib.ssd_scan_tc_error_string,
+                  x, dt, A, Bm, Cm, D, (), chunk)
+    ssd_scan_tc.launches += 1
+    return out
+
+
+ssd_scan_tc.launches = 0
+
+
+def ssd_scan_cuda_core(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core kernel (f32 or bf16 x/B/C, any strides with a contiguous
+    last dim)."""
+    _check(x, dt, A, Bm, Cm, D, chunk)
+    lib = _kernel()
+    out = _launch(lib.ssd_scan_fwd, lib.ssd_scan_error_string,
+                  x, dt, A, Bm, Cm, D, (_DTYPE_CODES[x.dtype],), chunk)
+    ssd_scan_cuda_core.launches += 1
+    return out
+
+
+ssd_scan_cuda_core.launches = 0
 
 
 def ssd_scan_plain(
