@@ -34,7 +34,19 @@ its check does not hold:
    2 x 1000 tokens and 8 tokens, then its main path — 8 prompts of 2048
    tokens with 64 greedy tokens each, 24 tensor-core SSD launches per
    prefill;
-6. one JSON line of the kernel variants, the nvidia-smi line, and the result
+6. train h2o-danube-3-4b, after the serving models are freed: an f32 step at
+   full width cut to 2 layers (B=1, S=1100: the attention pads its second KV
+   chunk, the CE loss drops its 76-token tail) on the card against the same
+   step on the CPU (loss, global grad norm, every updated parameter at
+   2e-3); then the main path — the full model, bf16, 6 steps of ``Trainer``
+   (batch 2 x 2048) fed by the port's DELI pipeline, with per-step loss and
+   time, data-wait, tokens/s, MFU and peak memory (``train`` line), every
+   hand-kernel count 0 (the reference trains without its Pallas kernels),
+   a profile of one step (``profile`` line) and its two halves timed apart
+   (``train_phases``: forward + backward, AdamW); the lm-100m example at its
+   defaults (300 f32 steps), whose loss must fall; and a checkpoint round
+   trip at lm-test size, bit for bit;
+7. one JSON line of the kernel variants, the nvidia-smi line, and the result
    line.
 
 Imports nothing of JAX or the reference package.
@@ -47,6 +59,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -207,11 +220,12 @@ KERNEL_SHAPES = [
 ]
 
 
-def close(a: torch.Tensor, b: torch.Tensor, tol: float) -> tuple:
-    """(every element within tol abs + tol rel, max abs err, worst share of
-    the allowance diff / (tol + tol·|b|), which is <= 1 where close)."""
+def close(a: torch.Tensor, b: torch.Tensor, tol: float, atol: float = None) -> tuple:
+    """(every element within atol abs + tol rel, max abs err, worst share of
+    the allowance diff / (atol + tol·|b|), which is <= 1 where close);
+    ``atol`` is ``tol`` unless given."""
     diff = (a.float() - b.float()).abs()
-    share = (diff / (tol + tol * b.float().abs())).max().item()
+    share = (diff / ((tol if atol is None else atol) + tol * b.float().abs())).max().item()
     return share <= 1.0, diff.max().item(), share
 
 
@@ -469,46 +483,306 @@ def serve_main_path(configs, M, ServeEngine, path: Path, kernels) -> dict:
     return stats
 
 
-def profile_serve(M, model, cfg, toks, path: Path) -> None:
-    """Where the time goes: one prefill and one decode step, each timed
-    bare on the host clock and then traced by torch.profiler for its device
+def profile_once(fn, arch: str, label: str, top_n: int = 6) -> dict:
+    """Where the time goes in one call of ``fn``, after a warm-up call: timed
+    bare on the host clock, then traced by torch.profiler for its device
     kernels.  Device busy share = kernel time / bare wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}  # device ms by kernel name, cut to 70 characters
+    names = set()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names.add(e.name)
+            key = e.name[:70]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    check(device_ms > 0, f"the profiler saw no device kernel in {arch} {label}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+    # cuBLAS/CUTLASS matrix products by their kernel names (nvjet: cuBLAS's
+    # Hopper GEMMs; sm80_xmma_gemm / simt_sgemm: its f32 ones)
+    gemm_ms = sum(ms for name, ms in by_name.items() if "gemm" in name or "nvjet" in name)
+    row = dict(arch=arch, step=label, wall_ms=wall_ms, device_ms=device_ms,
+               device_busy_share=device_ms / wall_ms, kernels=len(names), gemm_ms=gemm_ms,
+               top_ms=dict(top))
+    print("profile " + json.dumps(row), flush=True)
+    return row
+
+
+def profile_serve(M, model, cfg, toks, path: Path) -> None:
+    """One prefill and one decode step through ``profile_once``."""
     from repro_torch.serving.engine import grow_kv
 
     with torch.inference_mode():
         logits, (caches, kv_len) = M.prefill(model, cfg, {"tokens": toks})
         caches = grow_kv(caches, 8)  # K/V only: SSM caches have no sequence axis
         cur = torch.argmax(logits, -1)[:, None]
-        steps = {
-            "prefill": lambda: M.prefill(model, cfg, {"tokens": toks}),
-            "decode_step": lambda: M.decode_step(model, cfg, cur, (caches, kv_len), path.serve_l),
-        }
-        for label, fn in steps.items():
-            fn()
+        profile_once(lambda: M.prefill(model, cfg, {"tokens": toks}), path.arch, "prefill")
+        decode = lambda: M.decode_step(model, cfg, cur, (caches, kv_len), path.serve_l)  # noqa: E731
+        profile_once(decode, path.arch, "decode_step")
+        dot_f32_branch_cost(M, decode, path.arch)
+
+
+def dot_f32_branch_cost(M, decode, arch: str, turns: int = 10) -> None:
+    """What ``_dot_f32``'s serving branch (a bare ``mm`` when no gradient is
+    needed) saves against sending every product through ``_MmF32.apply``:
+    one decode step each way, in turns, on the host clock."""
+    from repro_torch.models import layers, ssm
+
+    plain = layers._dot_f32
+
+    def through_apply(x, w):
+        if x.is_cuda and not (x.dtype == w.dtype == torch.float32):
+            out = layers._MmF32.apply(x.reshape(-1, x.shape[-1]), w)
+            return out.reshape(*x.shape[:-1], w.shape[-1])
+        return plain(x, w)
+
+    times = {"mm": [], "apply": []}
+    try:
+        for i in range(2 * turns):
+            kind = ("mm", "apply")[i % 2]
+            for mod in (layers, M, ssm):
+                mod._dot_f32 = plain if kind == "mm" else through_apply
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            fn()
+            decode()
             torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            by_name = {}  # device ms by kernel name, cut to 70 characters
-            names = set()
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    names.add(e.name)
-                    key = e.name[:70]
-                    by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
-            device_ms = sum(by_name.values())
-            check(device_ms > 0, f"the profiler saw no device kernel in {path.arch} {label}")
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-            print("profile " + json.dumps(dict(
-                arch=path.arch, step=label, wall_ms=wall_ms, device_ms=device_ms,
-                device_busy_share=device_ms / wall_ms, kernels=len(names), top_ms=dict(top),
-            )), flush=True)
+            times[kind].append((time.monotonic() - t0) * 1e3)
+    finally:
+        for mod in (layers, M, ssm):
+            mod._dot_f32 = plain
+    row = dict(arch=arch, step="decode_step", turns=turns,
+               mm_ms=float(np.median(times["mm"])), apply_ms=float(np.median(times["apply"])),
+               mm_ms_all=times["mm"], apply_ms_all=times["apply"])
+    print("dot_f32_branch " + json.dumps(row), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "h2o-danube-3-4b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 6
+# the f32 check: 2 layers (the only cut), B=1, S=1100 — 2 KV chunks of 1024
+# with padding, and a CE loss over 2 chunks of 512 that drops 76 tokens
+CHECK_TRAIN_LAYERS, CHECK_TRAIN_S = 2, 1100
+
+
+def train_batch(vocab: int, B: int, S: int, seed: int, device) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, vocab, (B, S + 1), generator=g, device="cuda").to(device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def train_f32_check(configs, kernels) -> dict:
+    """One f32 training step at full width (2 layers) on the card against
+    the same step on the CPU, the path tier-1 holds against JAX: the step
+    ``make_train_step`` runs, taken in its two halves (``loss_and_grads``,
+    then ``adamw_update``) so the gradients can be read between them.
+
+    Held at 2e-3: the loss, the global grad norm, every gradient leaf (to
+    2e-3 of the leaf's largest magnitude, plus 2e-3 relative), every
+    parameter after the step, and the update itself, p_after - p_before (to
+    2e-3·lr, plus 2e-3 relative), against the CPU's update on the card's
+    gradients.  The update is not held against the CPU's own update: AdamW's
+    first step moves each element by about ±lr whatever its gradient's size,
+    so an element whose gradient is near 0 takes the sign of its rounding;
+    the share of elements where the two updates differ past the allowance is
+    printed instead."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training.optimizer import OptSettings, _global_norm, adamw_init, adamw_update
+    from repro_torch.weights import params_from_reference, params_to_numpy
+
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=CHECK_TRAIN_LAYERS, dtype="float32")
+    settings = OptSettings.auto(cfg.param_count())
+    lr = settings.lr
+    gpu = DecoderLM.from_config(cfg, seed=0, device="cuda", trainable=True)
+    init = params_to_numpy(gpu)
+    cpu = params_from_reference(init, cfg, "cpu", trainable=True)
+    out, grads, deltas = {}, {}, {}
+    zero_counts(kernels)
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        batch = train_batch(cfg.vocab, 1, CHECK_TRAIN_S, 5, name)
+        opt = adamw_init(model, settings)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        t0 = time.monotonic()
+        loss, g = loss_and_grads(model, cfg, batch)
+        gnorm = _global_norm(g.values())
+        adamw_update(model, g, opt, settings)
+        out[name] = (loss.item(), gnorm.item(), time.monotonic() - t0)
+        grads[name] = {n: t.detach().cpu() for n, t in g.items()}
+        deltas[name] = {n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters()}
+        del opt, before, g
+    counts = read_counts(kernels)
+    check(not any(counts.values()), f"the f32 training check launched hand kernels: {counts}")
+    # the CPU's update on the card's gradients, from the same weights
+    ref = params_from_reference(init, cfg, "cpu", trainable=True)
+    before = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    adamw_update(ref, grads["cuda"], adamw_init(ref, settings), settings)
+    ref_delta = {n: p.detach() - before[n] for n, p in ref.named_parameters()}
+    del before
+    (l_g, n_g, s_g), (l_c, n_c, s_c) = out["cuda"], out["cpu"]
+    worst = dict(params=0.0, grads=0.0, update=0.0)
+    outside = 0  # elements whose update differs from the CPU's own past the allowance
+    for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        ok, err, share = close(a.detach().cpu(), b.detach(), MODEL_TOL)
+        check(ok, f"f32 train step: parameter {name} differs between card and CPU by {err}")
+        worst["params"] = max(worst["params"], share)
+        gc = grads["cpu"][name]
+        scale = max(gc.abs().max().item(), torch.finfo(torch.float32).tiny)
+        ok, err, share = close(grads["cuda"][name], gc, MODEL_TOL, MODEL_TOL * scale)
+        check(ok, f"f32 train step: gradient of {name} differs between card and CPU by {err} "
+                  f"(largest magnitude {scale})")
+        worst["grads"] = max(worst["grads"], share)
+        ok, err, share = close(deltas["cuda"][name], ref_delta[name], MODEL_TOL, MODEL_TOL * lr)
+        check(ok, f"f32 train step: the update of {name} differs from the CPU's on the same "
+                  f"gradients by {err} (lr {lr})")
+        worst["update"] = max(worst["update"], share)
+        d_c = deltas["cpu"][name]
+        outside += int(((deltas["cuda"][name] - d_c).abs() > MODEL_TOL * lr + MODEL_TOL * d_c.abs()).sum())
+    for what, a, b in (("loss", l_g, l_c), ("global grad norm", n_g, n_c)):
+        check(abs(a - b) <= MODEL_TOL * (1 + abs(b)), f"f32 train step: {what} {a} on the card, {b} on the CPU")
+    check(all(np.isfinite([l_g, n_g])), "f32 train step: loss or grad norm not finite")
+    n_elems = sum(p.numel() for p in cpu.parameters())
+    row = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=1, seq=CHECK_TRAIN_S,
+               loss_card=l_g, loss_cpu=l_c, grad_norm_card=n_g, grad_norm_cpu=n_c,
+               params_worst_tol_share=worst["params"], grads_worst_tol_share=worst["grads"],
+               update_worst_tol_share=worst["update"],
+               update_vs_cpu_update_outside_share=outside / n_elems,
+               step_s_card=s_g, step_s_cpu=s_c)
+    print("train_check " + json.dumps(row), flush=True)
+    del gpu, cpu, ref, grads, deltas, ref_delta
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_main_path(configs, kernels, card: str) -> dict:
+    """The main path: the full model, bf16, ``Trainer`` on the port's DELI
+    pipeline, counts read around it; then a profile of one step."""
+    from repro_torch.core import PrefetchConfig
+    from repro_torch.data import decode_tokens, make_lm_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training.loop import Trainer, TrainerConfig
+
+    cfg = configs.get(TRAIN_ARCH)
+    loader, service, _ = make_lm_pipeline(
+        n_samples=1024, seq_len=TRAIN_S, vocab=cfg.vocab, batch_size=TRAIN_B, cache_items=256,
+        policy=PrefetchConfig.fifty_fifty(256),
+    )
+    trainer = Trainer(cfg, loader, TrainerConfig(seq_len=TRAIN_S, batch_size=TRAIN_B, log_every=1000),
+                      decode_fn=decode_tokens)  # the card, by default; no checkpoint dir
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    with service:
+        metrics = trainer.train(TRAIN_STEPS)
+    counts = read_counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(metrics) == TRAIN_STEPS, f"trained {len(metrics)} steps, want {TRAIN_STEPS}")
+    losses = [m.loss for m in metrics]
+    check(all(np.isfinite(losses)), f"training losses not finite: {losses}")
+    check(peak_gb < 80, f"peak memory {peak_gb:.2f} GB")
+    check(not any(counts.values()), f"the training main path launched hand kernels: {counts}")
+    step_s = float(np.median([m.compute_s for m in metrics]))
+    tokens = TRAIN_B * TRAIN_S
+    n_active = cfg.active_param_count()
+    wait = sum(m.data_wait_s for m in metrics)
+    comp = sum(m.compute_s for m in metrics)
+    row = dict(
+        arch=cfg.name, dtype=cfg.dtype, params=n_active, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+        moment_dtype=trainer.settings.moment_dtype, remat_policy="minimal",
+        loss=losses, compute_s=[m.compute_s for m in metrics],
+        data_wait_s=[m.data_wait_s for m in metrics], wait_fraction=wait / (wait + comp),
+        hits=sum(m.hits for m in metrics), misses=sum(m.misses for m in metrics),
+        median_step_s=step_s, tokens_per_s=tokens / step_s,
+        # the reference's model_flops (6·N_active·tokens) against the bf16 peak
+        mfu=6.0 * n_active * tokens / step_s / PEAK_FLOPS[torch.bfloat16],
+        card=card, peak_mem_gb=peak_gb, launches=counts,
+    )
+    print("train " + json.dumps(row), flush=True)
+    step = make_train_step(cfg, trainer.settings)
+    batch = train_batch(cfg.vocab, TRAIN_B, TRAIN_S, 6, "cuda")
+    row["profile"] = profile_once(
+        lambda: step(trainer.params, trainer.opt_state, batch)[0].item(), cfg.name, "train_step", 10
+    )
+    row["phases_s"] = train_phases(cfg, trainer, batch)
+    del trainer, loader, service
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_phases(cfg, trainer, batch) -> dict:
+    """One step split in its two halves on the host clock, each ending in a
+    synchronise: forward + backward (``loss_and_grads``, the recompute
+    included) and the optimizer (``adamw_update``)."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.training.optimizer import adamw_update
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, grads = loss_and_grads(trainer.params, cfg, batch)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    adamw_update(trainer.params, grads, trainer.opt_state, trainer.settings)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    for p in trainer.params.parameters():
+        p.grad = None
+    phases = dict(loss_and_grads_s=t1 - t0, adamw_update_s=t2 - t1)
+    print("train_phases " + json.dumps(dict(arch=cfg.name, **phases)), flush=True)
+    return phases
+
+
+def train_e2e_example(tmp: str) -> dict:
+    """The port's twin of examples/train_lm_e2e.py at its defaults (lm-100m,
+    f32, 300 steps) on the card; its loss must fall."""
+    from repro_torch.examples import train_lm_e2e
+
+    res = train_lm_e2e.main(["--ckpt-dir", os.path.join(tmp, "e2e")])
+    check(res["last_loss"] < res["first_loss"], f"lm-100m loss did not fall: {res}")
+    print("train_e2e " + json.dumps(res), flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def checkpoint_round_trip(tmp: str) -> None:
+    """lm-test after one step on the card, saved and restored into a model
+    drawn from another seed: every parameter, moment and the step, bit for
+    bit, in f32 and bf16."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import OptSettings, adamw_init
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = ArchConfig(name="lm-test", family="dense", n_layers=2, d_model=64, n_heads=4,
+                         n_kv_heads=2, d_ff=128, vocab=512, dtype=dtype, attn_chunk=64)
+        settings = OptSettings(moment_dtype=dtype)
+        model = DecoderLM.from_config(cfg, seed=0, trainable=True)
+        opt = adamw_init(model, settings)
+        _, model, opt = make_train_step(cfg, settings)(model, opt, train_batch(cfg.vocab, 2, 64, 7, "cuda"))
+        d = os.path.join(tmp, f"ckpt_{dtype}")
+        ckpt.save_checkpoint(d, 1, model, opt, extra={"step": 1})
+        back = DecoderLM.from_config(cfg, seed=1, trainable=True)
+        back_opt = adamw_init(back, settings)
+        ckpt.restore_checkpoint(d, like=(back, back_opt))
+        for (name, a), b in zip(model.named_parameters(), back.parameters()):
+            check(torch.equal(a, b), f"checkpoint round trip ({dtype}): {name} differs")
+        for kind in ("m", "v"):
+            for name, t in opt[kind].items():
+                check(torch.equal(t, back_opt[kind][name]), f"checkpoint round trip ({dtype}): {kind}/{name}")
+        check(int(back_opt["step"]) == 1, "checkpoint round trip: step")
+    print("checkpoint: lm-test f32 and bf16 restored bit for bit on the card", flush=True)
 
 
 def kernel_line(name, variant, source, replaces, launches, path, row) -> dict:
@@ -596,6 +870,12 @@ def main() -> None:
     danube = serve_main_path(configs, M, ServeEngine, DANUBE, kernels)
     mamba_f32 = serve_f32_checks(configs, M, MAMBA, kernels)
     mamba = serve_main_path(configs, M, ServeEngine, MAMBA, kernels)
+
+    train_f32_check(configs, kernels)
+    train_main_path(configs, kernels, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        train_e2e_example(tmp)
+        checkpoint_round_trip(tmp)
 
     flash_src, ssd_src = "src/repro/kernels/flash_attention.py:34", "src/repro/kernels/ssd.py:33"
     f32_row = lambda rows: next(r for r in rows if r["dtype"] == "float32")  # noqa: E731

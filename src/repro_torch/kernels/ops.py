@@ -4,6 +4,11 @@ These are the functions the model calls when ``cfg.use_kernels`` is set.  A
 CUDA tensor always goes to the kernel, which launches or raises; a CPU
 tensor goes to the kernel's plain PyTorch version.  Any other device raises.
 Each has an oracle in kernels/ref.py with the same signature.
+
+The kernels have no backward, as the reference's Pallas kernels have none:
+an input that requires grad, with grad mode on, raises rather than leave the
+kernel's contribution silently out of the gradients (training takes the
+model's chunked paths, ``models/model.py::train_loss``).
 """
 from __future__ import annotations
 
@@ -15,6 +20,15 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ssd as _ssd
 
 
+def _forward_only(name: str, *inputs: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the hand-written kernel has no backward and its output would carry "
+            "no gradient; train through the model's non-kernel path (train_loss) or call "
+            "it under torch.no_grad()"
+        )
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -24,6 +38,7 @@ def flash_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Blocked online-softmax attention. q (B,Sq,H,hd); k/v (B,Sk,KV,hd)."""
+    _forward_only("flash_attention", q, k, v)
     if q.is_cuda:
         return _flash.flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
@@ -42,6 +57,7 @@ def ssd_scan(
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD chunked scan. Returns (y (B,S,H,P), state (B,H,P,N))."""
+    _forward_only("ssd_scan", x, dt, A, Bm, Cm, D)
     if x.is_cuda:
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
     if x.device.type == "cpu":

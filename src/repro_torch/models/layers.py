@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
 
@@ -26,9 +27,47 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _MmF32.apply(x2, w)
+        else:  # serving: a bare mm; the Function costs 0.8-2.4 ms of host time
+            # a decode step on an H100 (chip_smoke.py, line `dot_f32_branch`)
+            out = torch.mm(x2, w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
+
+
+class _MmF32(torch.autograd.Function):
+    """``mm`` with ``out_dtype=float32`` and a derivative: the backward runs
+    two GEMMs of the same kind on the gradient cast to the operands' dtype
+    (never widening the operands, which would leave the tensor cores) and
+    casts their f32 results to the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        a, b = ctx.saved_tensors
+        g = grad.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g, b.T, out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.T, g, out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
+
+
+def checkpointed(fn, *args, **kwargs):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (the port of
+    ``jax.checkpoint``) while autograd records; a plain call otherwise, so
+    serving never pays for it.  ``kwargs`` go to the checkpoint
+    (``context_fn``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

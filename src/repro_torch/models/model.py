@@ -13,6 +13,8 @@ Entry points, as in the reference (``params`` is a ``DecoderLM``):
 
   init_params / param_shapes      parameter tree (real / meta tensors)
   forward                         token embeddings -> final hidden
+  train_loss                      chunked-vocab cross entropy (never
+                                  materializes (B,S,V) for the full sequence)
   prefill                         forward + KV/SSM decode state
   init_decode_state / decode_step one-token serving step
 
@@ -25,16 +27,20 @@ MoE channel mixers and the patch/frame frontends are not ported yet
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     _dot_f32,
     attention_block,
     attn_param_shapes,
+    checkpointed,
     dense_init,
     mlp_block,
     mlp_param_shapes,
@@ -146,49 +152,50 @@ def param_shapes(cfg: ArchConfig) -> Dict:
     return init_params(cfg, device="meta")
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Block(nn.Module):
     """One period position: ``norm1`` + ``mixer`` (+ ``norm2`` + ``mlp``)."""
 
-    def __init__(self, tree: Dict):
+    def __init__(self, tree: Dict, trainable: bool = False):
         super().__init__()
-        self.norm1 = _frozen(tree["norm1"])
-        self.mixer = nn.ParameterDict({k: _frozen(t) for k, t in tree["mixer"].items()})
+        param = functools.partial(nn.Parameter, requires_grad=trainable)
+        self.norm1 = param(tree["norm1"])
+        self.mixer = nn.ParameterDict({k: param(t) for k, t in tree["mixer"].items()})
         if "mlp" in tree:
-            self.norm2 = _frozen(tree["norm2"])
-            self.mlp = nn.ParameterDict({k: _frozen(t) for k, t in tree["mlp"].items()})
+            self.norm2 = param(tree["norm2"])
+            self.mlp = nn.ParameterDict({k: param(t) for k, t in tree["mlp"].items()})
 
 
 class DecoderLM(nn.Module):
     """Decoder: ``embed``, ``layers`` (per period repetition, an
     ``nn.ModuleDict`` of ``pos{i}`` blocks), ``final_norm`` and ``head``.
     Built from a reference-layout tree whose leaves are checked against
-    ``param_shapes(cfg)``; serving needs no gradients, so every parameter
-    is frozen."""
+    ``param_shapes(cfg)``.  Serving needs no gradients, so every parameter
+    is frozen unless ``trainable``; each per-period parameter is a view of
+    its stacked leaf, so training updates the tree in place."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict):
+    def __init__(self, cfg: ArchConfig, tree: Dict, trainable: bool = False):
         super().__init__()
         _check_tree(tree, param_shapes(cfg))  # raises first for unported families
         self.cfg = cfg
-        self.embed = _frozen(tree["embed"])
+        param = functools.partial(nn.Parameter, requires_grad=trainable)
+        self.embed = param(tree["embed"])
         if not cfg.tie_embeddings:
-            self.head = _frozen(tree["head"])
-        self.final_norm = _frozen(tree["final_norm"])
+            self.head = param(tree["head"])
+        self.final_norm = param(tree["final_norm"])
         self.layers = nn.ModuleList(
-            nn.ModuleDict({pos: Block(_take(sub, p)) for pos, sub in tree["stack"].items()})
+            nn.ModuleDict({pos: Block(_take(sub, p), trainable) for pos, sub in tree["stack"].items()})
             for p in range(cfg.n_periods)
         )
 
     @classmethod
-    def from_config(cls, cfg: ArchConfig, seed: int = 0, device=None) -> "DecoderLM":
+    def from_config(
+        cls, cfg: ArchConfig, seed: int = 0, device=None, trainable: bool = False
+    ) -> "DecoderLM":
         """Random weights drawn on ``device`` (the card unless the caller
         asks for the CPU) from a seeded ``torch.Generator``."""
         device = resolve_device(device)
         g = torch.Generator(device=device).manual_seed(seed)
-        return cls(cfg, init_params(cfg, g))
+        return cls(cfg, init_params(cfg, g), trainable)
 
     @property
     def device(self) -> torch.device:
@@ -233,27 +240,37 @@ def _period_forward(
     cfg: ArchConfig,
     positions: torch.Tensor,
     collect_cache: bool,
+    inner_remat: bool = False,
 ):
-    """One period over a full sequence (prefill).  Returns (x, caches) where
-    caches[f"pos{i}"] holds the decode carry when ``collect_cache``: for
-    attention dict(k, v), the roped K/V that ``attention_block`` made (the
-    reference recomputes them; in f32 the two are equal); for SSM
-    dict(state, conv)."""
+    """One period over a full sequence (train / prefill).  Returns (x,
+    caches) where caches[f"pos{i}"] holds the decode carry when
+    ``collect_cache``: for attention dict(k, v), the roped K/V that
+    ``attention_block`` made (the reference recomputes them; in f32 the two
+    are equal); for SSM dict(state, conv).
+
+    ``inner_remat`` additionally checkpoints every sublayer (the mixer and
+    the channel mix), as the reference's "sublayer" policy does."""
+
+    def ck(f, *args):
+        return checkpointed(f, *args) if inner_remat else f(*args)
+
     caches = {}
     for i, (mixer, mlp) in enumerate(zip(cfg.period, cfg.mlp_pattern)):
         blk = period[f"pos{i}"]
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
         if mixer == "attn":
-            y, (k, v) = attention_block(blk.mixer, h, cfg, positions=positions)
+            y, (k, v) = ck(
+                lambda hh: attention_block(blk.mixer, hh, cfg, positions=positions), h
+            )
             carry = {"k": k, "v": v}
         else:
-            y, (state, conv) = ssm_block(blk.mixer, h, cfg)
+            y, (state, conv) = ck(lambda hh: ssm_block(blk.mixer, hh, cfg), h)
             carry = {"state": state, "conv": conv}
         if collect_cache:
             caches[f"pos{i}"] = carry
         x = x + y
         if mlp != "none":
-            x = _channel_mix(blk, x, cfg)
+            x = ck(lambda xx: _channel_mix(blk, xx, cfg), x)
     return x, caches
 
 
@@ -292,17 +309,48 @@ def _period_decode(
 # ---------------------------------------------------------------------------
 # Full forward passes
 # ---------------------------------------------------------------------------
-def forward(params: DecoderLM, cfg: ArchConfig, batch: Dict, *, collect_cache: bool = False):
+# The projections' products are the matmuls with no batch dims: the port of
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable.  The attention
+# and SSD einsums run as batched products (bmm) and are recomputed.
+_SAVEABLE_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.mm.dtype))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _SAVEABLE_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def forward(
+    params: DecoderLM,
+    cfg: ArchConfig,
+    batch: Dict,
+    *,
+    remat: bool = True,
+    collect_cache: bool = False,
+    remat_policy: Optional[str] = "minimal",
+):
     """Embeddings -> period stack -> final norm.
 
     Returns (hidden (B,S,d), caches) — caches stacked over periods when
     ``collect_cache`` (prefill), else None.
+
+    ``remat`` checkpoints each period while autograd records (the reference
+    checkpoints its scan body).  ``remat_policy``: "minimal" saves only the
+    period carries (full recompute in backward); "dots" additionally saves
+    the projections' outputs (selective checkpointing); "sublayer" nests a
+    checkpoint around every sublayer.
     """
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    inner = remat and remat_policy == "sublayer"
+    kw = {}
+    if remat and remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
     per_period = []
     for period in params.layers:
-        x, caches = _period_forward(period, x, cfg, positions, collect_cache)
+        args = (period, x, cfg, positions, collect_cache, inner)
+        x, caches = checkpointed(_period_forward, *args, **kw) if remat else _period_forward(*args)
         per_period.append(caches)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     if not collect_cache:
@@ -320,6 +368,61 @@ def lm_head(params: DecoderLM, cfg: ArchConfig, hidden: torch.Tensor) -> torch.T
     return _dot_f32(hidden, w)
 
 
+def _ce_chunk(w: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor):
+    """Summed masked cross entropy of one chunk, and its count of labels."""
+    logits = _dot_f32(h_c, w)  # f32 (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)  # (B, c)
+    gold = torch.gather(logits, -1, l_c.clamp_min(0)[..., None]).squeeze(-1)
+    mask = (l_c >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(
+    params: DecoderLM,
+    cfg: ArchConfig,
+    hidden: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Cross entropy over sequence chunks, each checkpointed, so the (B, S, V)
+    logits tensor never exists for more than ``chunk`` positions at a time.
+
+    labels < 0 are masked out.  As in the reference, only the first
+    ``(S // chunk) * chunk`` positions count: the tail past the last whole
+    chunk is dropped.
+    """
+    S = hidden.shape[1]
+    w = params.embed.T if cfg.tie_embeddings else params.head
+    chunk = min(chunk, S)
+    labels = labels.long()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        t, n = checkpointed(_ce_chunk, w, hidden[:, sl], labels[:, sl])
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def train_loss(
+    params: DecoderLM,
+    cfg: ArchConfig,
+    batch: Dict,
+    remat_policy: Optional[str] = "minimal",
+) -> torch.Tensor:
+    """The training loss: ``forward`` with remat, then ``chunked_ce_loss``.
+
+    Training never reaches a hand kernel: the reference trains without its
+    Pallas kernels (``use_pallas`` defaults to False and they have no
+    backward), so this takes the chunked attention and chunked SSD whatever
+    ``cfg.use_kernels`` says.
+    """
+    cfg = dataclasses.replace(cfg, use_kernels=False)
+    hidden, _ = forward(params, cfg, batch, remat=True, remat_policy=remat_policy)
+    return chunked_ce_loss(params, cfg, hidden, batch["labels"])
+
+
 # ---------------------------------------------------------------------------
 # Serving: prefill + one-token decode
 # ---------------------------------------------------------------------------
@@ -328,7 +431,7 @@ def prefill(params: DecoderLM, cfg: ArchConfig, batch: Dict):
 
     state = (caches stacked over periods, kv_len (B,) int32).
     """
-    hidden, caches = forward(params, cfg, batch, collect_cache=True)
+    hidden, caches = forward(params, cfg, batch, remat=False, collect_cache=True)
     logits = lm_head(params, cfg, hidden[:, -1:])[:, 0]
     B, S = hidden.shape[0], hidden.shape[1]
     kv_len = torch.full((B,), S, dtype=torch.int32, device=hidden.device)

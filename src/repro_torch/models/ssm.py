@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import _dot_f32, rms_norm
+from repro_torch.models.layers import _dot_f32, checkpointed, rms_norm
 
 
 def _heads(t: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
@@ -78,28 +78,36 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor, torch
     ys = []
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        x_j, dt_j, B_j, C_j = x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
-        a = dt_j * A[None, None, :]  # (B,Q,H)
-        a_cum = torch.cumsum(a, dim=1)
-        a_total = a_cum[:, -1, :]  # (B,H)
-        # intra-chunk: L[i,j] = exp(a_i - a_j) (i>=j), selected, never inf*0
-        seg = a_cum[:, :, None, :] - a_cum[:, None, :, :]  # (B,Qi,Qj,H)
-        L = torch.where(causal, torch.exp(seg), 0.0)
-        cb = torch.einsum("bign,bjgn->bijg", C_j.float(), B_j.float())  # (B,Qi,Qj,G)
-        cb = _heads(cb, rep, -1)
-        M = cb * L * dt_j[:, None, :, :].float()
-        y = torch.einsum("bijh,bjhp->bihp", M, x_j.float())
-        # inter-chunk: y_i += exp(a_cum[i]) C_i . S_entering
-        Ch = _heads(C_j, rep, 2).float()  # (B,Q,H,N)
-        y = y + torch.einsum("bqhn,bhpn->bqhp", Ch, S_prev) * torch.exp(a_cum)[..., None]
-        # state update: S_new = exp(a_total) S_prev + sum_j exp(a_total-a_j) dt_j B_j x_j
-        w = torch.exp(a_total[:, None, :] - a_cum) * dt_j.float()  # (B,Q,H)
-        Bh = _heads(B_j, rep, 2).float()
-        cs = torch.einsum("bqh,bqhn,bqhp->bhpn", w, Bh, x_j.float())
-        S_prev = S_prev * torch.exp(a_total)[..., None, None] + cs
-        ys.append(y.to(x.dtype))  # stream y in the model dtype
+        # checkpointed while autograd records, as the reference's scan body
+        S_prev, y = checkpointed(
+            _ssd_chunk, S_prev, x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl], A, causal, rep
+        )
+        ys.append(y)
     y = torch.cat(ys, dim=1)
     return y + x * D[None, None, :, None], S_prev
+
+
+def _ssd_chunk(S_prev, x_j, dt_j, B_j, C_j, A, causal, rep: int):
+    """One chunk of ``ssd_chunked``: (state leaving it, y in x's dtype)."""
+    a = dt_j * A[None, None, :]  # (B,Q,H)
+    a_cum = torch.cumsum(a, dim=1)
+    a_total = a_cum[:, -1, :]  # (B,H)
+    # intra-chunk: L[i,j] = exp(a_i - a_j) (i>=j), selected, never inf*0
+    seg = a_cum[:, :, None, :] - a_cum[:, None, :, :]  # (B,Qi,Qj,H)
+    L = torch.where(causal, torch.exp(seg), 0.0)
+    cb = torch.einsum("bign,bjgn->bijg", C_j.float(), B_j.float())  # (B,Qi,Qj,G)
+    cb = _heads(cb, rep, -1)
+    M = cb * L * dt_j[:, None, :, :].float()
+    y = torch.einsum("bijh,bjhp->bihp", M, x_j.float())
+    # inter-chunk: y_i += exp(a_cum[i]) C_i . S_entering
+    Ch = _heads(C_j, rep, 2).float()  # (B,Q,H,N)
+    y = y + torch.einsum("bqhn,bhpn->bqhp", Ch, S_prev) * torch.exp(a_cum)[..., None]
+    # state update: S_new = exp(a_total) S_prev + sum_j exp(a_total-a_j) dt_j B_j x_j
+    w = torch.exp(a_total[:, None, :] - a_cum) * dt_j.float()  # (B,Q,H)
+    Bh = _heads(B_j, rep, 2).float()
+    cs = torch.einsum("bqh,bqhn,bqhp->bhpn", w, Bh, x_j.float())
+    S_new = S_prev * torch.exp(a_total)[..., None, None] + cs
+    return S_new, y.to(x_j.dtype)  # stream y in the model dtype
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm, D):
