@@ -34,6 +34,15 @@ its check does not hold:
    2 x 1000 tokens and 8 tokens, then its main path — 8 prompts of 2048
    tokens with 64 greedy tokens each, 24 tensor-core SSD launches per
    prefill;
+   then phi3.5-moe-42b-a6.6b (16 experts, top-2, MoE in every layer) at full
+   width, cut to 24 layers to fit the card: f32 checks at 4 layers (kernel
+   path against plain path at 2 x 512; prefill against decode at a capacity
+   that drops no token), then its main path as danube's — 24 tensor-core
+   flash launches and no SSD launch per prefill — and ``from_config``'s peak
+   memory held within 2 GB of the weights' bytes; then the hybrid period:
+   jamba's reduced config in f32 through both CUDA-core kernels (2 flash and
+   14 SSD launches a prefill), logits and caches against the plain path and
+   greedy tokens equal to the plain path's;
 6. train h2o-danube-3-4b, after the serving models are freed: an f32 step at
    full width cut to 2 layers (B=1, S=1100: the attention pads its second KV
    chunk, the CE loss drops its 76-token tail) on the card against the same
@@ -61,6 +70,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -83,24 +93,41 @@ MODEL_TOL = 2e-3
 @dataclasses.dataclass(frozen=True)
 class Path:
     """One model's serving path: the main path's batch, prompt length and
-    new tokens, and the f32 checks' batch and prompt length."""
+    new tokens, and the f32 checks' batch and prompt length; ``layers`` and
+    ``check_layers`` cut the depth of the main path and of the f32 checks
+    (None: the published depth)."""
 
     arch: str
-    family: str  # the dispatcher its prefill calls in every layer
-    kernel: str  # the kernel variant its bf16 prefill launches in every layer
-    f32_kernel: str  # the variant its f32 prefill launches
     serve_b: int
     serve_l: int
     serve_new: int
     check_b: int
     check_l: int
+    layers: Optional[int] = None
+    check_layers: Optional[int] = None
+
+    def config(self, configs, check: bool = False):
+        cfg = configs.get(self.arch)
+        if check:
+            cfg = dataclasses.replace(cfg, dtype="float32")
+        n = self.check_layers if check else self.layers
+        return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
 
 
-DANUBE = Path("h2o-danube-3-4b", "flash_attention", "flash_attention_tc",
-              "flash_attention_cuda_core", 4, 1024, 32, 2, 512)
-MAMBA = Path("mamba2-130m", "ssd_scan", "ssd_scan_tc", "ssd_scan_cuda_core",
-             8, 2048, 64, 2, 1000)  # 1000: padded to 1024 in the block
+DANUBE = Path("h2o-danube-3-4b", 4, 1024, 32, 2, 512)
+MAMBA = Path("mamba2-130m", 8, 2048, 64, 2, 1000)  # 1000: padded to 1024 in the block
+# phi3.5-moe at its published widths cut from 32 to 24 layers: 1.300 B
+# parameters a layer (16 experts of 3 x 4096 x 6400) and 262.7 M in embed and
+# head make 63.0 GB of bf16 weights at 24 layers, 84.1 GB at 32 (over the
+# card's 80) and 73.3 GB at 28 (no room left for the allocator).  Its f32
+# checks cut it to 4 layers (20.9 GB).
+PHI = Path("phi3.5-moe-42b-a6.6b", 4, 1024, 32, 2, 512, layers=24, check_layers=4)
+HYBRID = "jamba-1.5-large-398b"  # served on the card in its reduced config only
 CHECK_STEPS = 8
+# prefill against step-by-step decode at a capacity that drops no token:
+# decode routes B tokens a step, prefill B*S (tests/test_serving.py:19)
+NO_DROP_CAPACITY = 16.0
+INIT_SLACK_BYTES = 2e9  # from_config's peak over the weights' own bytes
 
 
 def fail(msg: str) -> None:
@@ -204,6 +231,7 @@ def time_in_turns(new, old, iters: int) -> tuple:
 # name, B, S, H, KV, hd, dtype, causal, window
 KERNEL_SHAPES = [
     ("serve prefill (main path)", DANUBE.serve_b, DANUBE.serve_l, 32, 8, 120, torch.bfloat16, True, 4096),
+    ("phi prefill (main path)", PHI.serve_b, PHI.serve_l, 32, 8, 128, torch.bfloat16, True, None),
     ("danube past the window", 1, 6144, 32, 8, 120, torch.bfloat16, True, 4096),
     ("danube heads, ragged S, f32", 2, 1000, 32, 8, 120, torch.float32, True, None),
     ("hd=128, H=48/KV=8", 1, 2048, 48, 8, 128, torch.bfloat16, True, None),
@@ -386,19 +414,31 @@ def read_counts(kernels) -> dict:
     return {name: fn.launches for name, fn in kernels.items()}
 
 
-def check_path_counts(path: Path, kernel: str, counts: dict, n_layers: int, what: str) -> None:
-    """The path's dispatcher and the one kernel variant it should pick once
-    per layer; every other count not at all."""
+def prefill_counts(cfg) -> dict:
+    """The launches one prefill must make: one flash launch per attention
+    layer and one SSD launch per SSM layer, each through its dispatcher and
+    the variant the dtype picks (bf16: tensor cores, f32: CUDA cores).
+    Every kernel left out must not launch at all."""
+    variant = "tc" if cfg.torch_dtype == torch.bfloat16 else "cuda_core"
+    want = {}
+    for mixer, family in (("attn", "flash_attention"), ("ssm", "ssd_scan")):
+        n = cfg.n_periods * cfg.period.count(mixer)
+        if n:
+            want[family] = want[f"{family}_{variant}"] = n
+    return want
+
+
+def check_counts(arch: str, counts: dict, want: dict, what: str) -> None:
     for name, n in counts.items():
-        want = n_layers if name in (path.family, kernel) else 0
-        check(n == want, f"{path.arch} {what} launched {name} {n} times, want {want}")
+        check(n == want.get(name, 0), f"{arch} {what} launched {name} {n} times, want {want.get(name, 0)}")
 
 
 def serve_f32_checks(configs, M, path: Path, kernels) -> dict:
     """f32 at full width: the kernel path against the non-kernel path, and
-    prefill against token-by-token decode.  Returns the launch counts of the
-    f32 kernel-path prefill."""
-    cfg = dataclasses.replace(configs.get(path.arch), dtype="float32")
+    prefill against token-by-token decode (at a capacity that drops no token
+    for an MoE model).  Returns the launch counts of the f32 kernel-path
+    prefill."""
+    cfg = path.config(configs, check=True)
     model = M.DecoderLM.from_config(cfg, seed=0, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(2)
     tokens = torch.randint(0, cfg.vocab, (path.check_b, path.check_l), generator=g, device="cuda")
@@ -407,19 +447,20 @@ def serve_f32_checks(configs, M, path: Path, kernels) -> dict:
         logits_k, _ = M.prefill(model, cfg, {"tokens": tokens})
         torch.cuda.synchronize()
         f32_counts = read_counts(kernels)
-        check_path_counts(path, path.f32_kernel, f32_counts, cfg.n_layers, "f32 prefill")
+        check_counts(path.arch, f32_counts, prefill_counts(cfg), "f32 prefill")
         logits_x, _ = M.prefill(model, dataclasses.replace(cfg, use_kernels=False), {"tokens": tokens})
         ok, err, _ = close(logits_k, logits_x, MODEL_TOL)
-        print(f"serve {path.arch} f32 B={path.check_b} L={path.check_l}: "
+        print(f"serve {path.arch} f32 {cfg.n_layers} layers B={path.check_b} L={path.check_l}: "
               f"kernel vs plain prefill logits max abs err {err}", flush=True)
         check(ok, f"{path.arch} f32 prefill logits: kernel path vs plain path differ by {err}")
         check(bool(torch.isfinite(logits_k).all()), f"{path.arch} f32 prefill logits not finite")
 
         head = tokens[:, :CHECK_STEPS]
-        logits_p, _ = M.prefill(model, cfg, {"tokens": head})
-        state = M.init_decode_state(cfg, path.check_b, CHECK_STEPS, device="cuda")
+        dcfg = dataclasses.replace(cfg, capacity_factor=NO_DROP_CAPACITY)  # moves only MoE
+        logits_p, _ = M.prefill(model, dcfg, {"tokens": head})
+        state = M.init_decode_state(dcfg, path.check_b, CHECK_STEPS, device="cuda")
         for pos in range(CHECK_STEPS):
-            logits_d, state = M.decode_step(model, cfg, head[:, pos : pos + 1], state, pos)
+            logits_d, state = M.decode_step(model, dcfg, head[:, pos : pos + 1], state, pos)
         ok, err, _ = close(logits_p, logits_d, MODEL_TOL)
         print(f"serve {path.arch} f32: prefill of {CHECK_STEPS} vs {CHECK_STEPS} decode steps "
               f"max abs err {err}", flush=True)
@@ -431,21 +472,44 @@ def serve_f32_checks(configs, M, path: Path, kernels) -> dict:
 
 
 def cache_shapes(cfg, B: int, L: int) -> dict:
-    """What one prefill of B x L tokens must leave in the decode caches."""
-    if cfg.has_ssm:
-        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-        return {
-            "state": (cfg.n_periods, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-            "conv": (cfg.n_periods, B, cfg.ssm_conv - 1, conv_dim),
-        }
+    """What one prefill of B x L tokens must leave in the decode caches, by
+    period position: K and V for attention, state and conv tail for SSM."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     kv = (cfg.n_periods, B, L, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": kv, "v": kv}
+    ssm = {
+        "state": (cfg.n_periods, B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+        "conv": (cfg.n_periods, B, cfg.ssm_conv - 1, conv_dim),
+    }
+    return {f"pos{i}": {"k": kv, "v": kv} if mixer == "attn" else ssm
+            for i, mixer in enumerate(cfg.period)}
+
+
+def check_caches(arch: str, caches: dict, cfg, B: int, L: int) -> None:
+    want = cache_shapes(cfg, B, L)
+    got = {pos: {name: tuple(t.shape) for name, t in sub.items()} for pos, sub in caches.items()}
+    check(got == want, f"{arch} caches {got}, want {want}")
+
+
+def from_config_measured(M, cfg, **kw):
+    """``DecoderLM.from_config`` with its peak memory over what was allocated
+    before it, held within INIT_SLACK_BYTES of the weights' own bytes.
+    Returns (model, peak bytes, weight bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = M.DecoderLM.from_config(cfg, seed=0, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(peak <= weights + INIT_SLACK_BYTES,
+          f"{cfg.name} from_config peaked at {peak / 1e9:.3f} GB for {weights / 1e9:.3f} GB of weights")
+    return model, peak, weights
 
 
 def serve_main_path(configs, M, ServeEngine, path: Path, kernels) -> dict:
     """A main path: a bf16 ServeEngine on the card, counts around it."""
-    cfg = configs.get(path.arch)
-    model = M.DecoderLM.from_config(cfg, seed=0)  # the card, by default
+    cfg = path.config(configs)
+    model, init_peak, weight_bytes = from_config_measured(M, cfg)  # the card, by default
     engine = ServeEngine(cfg, model, max_len=path.serve_l + path.serve_new)
     g = torch.Generator(device="cuda").manual_seed(3)
     B, L, NEW = path.serve_b, path.serve_l, path.serve_new
@@ -457,7 +521,7 @@ def serve_main_path(configs, M, ServeEngine, path: Path, kernels) -> dict:
     res = engine.generate(prompts, max_new_tokens=NEW)
     counts = read_counts(kernels)
 
-    check_path_counts(path, path.kernel, counts, cfg.n_layers, "main path (one prefill)")
+    check_counts(path.arch, counts, prefill_counts(cfg), "main path (one prefill)")
     check(len(res.tokens) == B and all(len(t) == NEW for t in res.tokens),
           "wrong number of generated tokens")
     check(all(0 <= t < cfg.vocab for seq in res.tokens for t in seq), "token outside [0, vocab)")
@@ -466,11 +530,10 @@ def serve_main_path(configs, M, ServeEngine, path: Path, kernels) -> dict:
         logits, (caches, _) = M.prefill(model, cfg, {"tokens": toks})
         check(tuple(logits.shape) == (B, cfg.vocab), f"logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), f"{path.arch} bf16 prefill logits not finite")
-        for name, shape in cache_shapes(cfg, B, L).items():
-            got = tuple(caches["pos0"][name].shape)
-            check(got == shape, f"{path.arch} cache {name} shape {got}, want {shape}")
+        check_caches(path.arch, caches, cfg, B, L)
     stats = dict(
-        arch=path.arch, dtype=cfg.dtype, batch=B, prompt_len=L, new_tokens=NEW,
+        arch=path.arch, layers=cfg.n_layers, dtype=cfg.dtype, batch=B, prompt_len=L, new_tokens=NEW,
+        weights_gb=weight_bytes / 1e9, from_config_peak_gb=init_peak / 1e9,
         prefill_s=res.prefill_s, decode_s=res.decode_s,
         prefill_tok_s=B * L / res.prefill_s, decode_tok_s=B * (NEW - 1) / res.decode_s,
         decode_ms_per_step=res.decode_s / (NEW - 1) * 1e3,
@@ -564,6 +627,55 @@ def dot_f32_branch_cost(M, decode, arch: str, turns: int = 10) -> None:
                mm_ms=float(np.median(times["mm"])), apply_ms=float(np.median(times["apply"])),
                mm_ms_all=times["mm"], apply_ms_all=times["apply"])
     print("dot_f32_branch " + json.dumps(row), flush=True)
+
+
+def serve_hybrid_smoke(configs, M, ServeEngine, kernels) -> dict:
+    """The hybrid period on the card: jamba's reduced config (2 periods of 7
+    SSM positions and 1 attention position, MLP and MoE channel mixers in
+    turn) in f32 through both CUDA-core kernels.  The kernel-path prefill's
+    logits and caches against the plain path's, and the greedy tokens of a
+    ServeEngine on each path, which must be equal."""
+    cfg = dataclasses.replace(configs.reduce_for_smoke(configs.get(HYBRID)), dtype="float32")
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    want = prefill_counts(cfg)
+    check(want == {"flash_attention": 2, "flash_attention_cuda_core": 2,
+                   "ssd_scan": 14, "ssd_scan_cuda_core": 14}, f"{cfg.name}: period {cfg.period}")
+    model = M.DecoderLM.from_config(cfg, seed=0, device="cuda")
+    B, L, NEW = 4, 32, 16  # examples/serve_batched.py's batch
+    g = torch.Generator(device="cuda").manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab, (B, L), generator=g, device="cuda")
+    with torch.inference_mode():
+        zero_counts(kernels)
+        logits_k, (caches_k, _) = M.prefill(model, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        check_counts(cfg.name, read_counts(kernels), want, "f32 prefill")
+        logits_x, (caches_x, _) = M.prefill(model, plain, {"tokens": tokens})
+    ok, err, _ = close(logits_k, logits_x, MODEL_TOL)
+    check(ok, f"{cfg.name} f32 prefill logits: kernel path vs plain path differ by {err}")
+    check(bool(torch.isfinite(logits_k).all()), f"{cfg.name} prefill logits not finite")
+    check_caches(cfg.name, caches_k, cfg, B, L)
+    cache_err = 0.0
+    for pos, sub in caches_k.items():
+        for name, t in sub.items():
+            ok, e, _ = close(t, caches_x[pos][name], MODEL_TOL)
+            check(ok, f"{cfg.name} cache {pos}/{name}: kernel path vs plain path differ by {e}")
+            cache_err = max(cache_err, e)
+    prompts = tokens.tolist()
+    zero_counts(kernels)
+    res = ServeEngine(cfg, model, max_len=L + NEW).generate(prompts, max_new_tokens=NEW)
+    counts = read_counts(kernels)
+    check_counts(cfg.name, counts, want, "ServeEngine.generate (one prefill)")
+    res_x = ServeEngine(plain, model, max_len=L + NEW).generate(prompts, max_new_tokens=NEW)
+    check(res.tokens == res_x.tokens, f"{cfg.name} greedy tokens: kernel path {res.tokens}, "
+                                      f"plain path {res_x.tokens}")
+    row = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers, period=list(cfg.period),
+               mlp_pattern=list(cfg.mlp_pattern), batch=B, prompt_len=L, new_tokens=NEW,
+               logits_max_abs_err=err, caches_max_abs_err=cache_err, tokens_equal=True,
+               prefill_s=res.prefill_s, decode_s=res.decode_s, launches=counts)
+    print("serve_hybrid " + json.dumps(row), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -785,10 +897,11 @@ def checkpoint_round_trip(tmp: str) -> None:
     print("checkpoint: lm-test f32 and bf16 restored bit for bit on the card", flush=True)
 
 
-def kernel_line(name, variant, source, replaces, launches, path, row) -> dict:
+def kernel_line(name, variant, source, replaces, launches: dict, row) -> dict:
+    """One kernel variant: ``launches`` by the run that counted them."""
     return dict(
         name=name, variant=variant, dtype=row["dtype"], route="cuda", source=source,
-        replaces=replaces, launches=launches, launches_on=path, shape=row["shape"],
+        replaces=replaces, launches=sum(launches.values()), launches_on=launches, shape=row["shape"],
         max_abs_err=row["max_abs_err"], ms=row["ms"], previous_ms=row["previous_ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
         library_ms=row["library_ms"], library_path=row.get("library_path"),
@@ -870,6 +983,9 @@ def main() -> None:
     danube = serve_main_path(configs, M, ServeEngine, DANUBE, kernels)
     mamba_f32 = serve_f32_checks(configs, M, MAMBA, kernels)
     mamba = serve_main_path(configs, M, ServeEngine, MAMBA, kernels)
+    phi_f32 = serve_f32_checks(configs, M, PHI, kernels)
+    phi = serve_main_path(configs, M, ServeEngine, PHI, kernels)  # frees the model
+    hybrid = serve_hybrid_smoke(configs, M, ServeEngine, kernels)
 
     train_f32_check(configs, kernels)
     train_main_path(configs, kernels, card)
@@ -879,17 +995,25 @@ def main() -> None:
 
     flash_src, ssd_src = "src/repro/kernels/flash_attention.py:34", "src/repro/kernels/ssd.py:33"
     f32_row = lambda rows: next(r for r in rows if r["dtype"] == "float32")  # noqa: E731
-    main_path, f32_path = "bf16 main path, one prefill", "f32 full-width prefill check"
+    # launches by run: each main path's one prefill (bf16), each f32
+    # full-width check's kernel-path prefill, the hybrid's ServeEngine
+    runs = {f"{DANUBE.arch} bf16 main path": danube["launches"], f"{PHI.arch} bf16 main path": phi["launches"],
+            f"{MAMBA.arch} bf16 main path": mamba["launches"], f"{DANUBE.arch} f32 check": danube_f32,
+            f"{PHI.arch} f32 check": phi_f32, f"{MAMBA.arch} f32 check": mamba_f32,
+            f"{HYBRID}-smoke f32 ServeEngine": hybrid}
+
+    def by_run(kernel: str) -> dict:
+        return {run: counts[kernel] for run, counts in runs.items() if counts[kernel]}
+
     lines = [
         kernel_line("flash_attention", fa.TENSOR_CORE, "src/repro_torch/csrc/flash_attention_tc.cu",
-                    flash_src, danube["launches"]["flash_attention_tc"], main_path, flash_rows[0]),
+                    flash_src, by_run("flash_attention_tc"), flash_rows[0]),
         kernel_line("flash_attention", fa.CUDA_CORE, "src/repro_torch/csrc/flash_attention.cu",
-                    flash_src, danube_f32["flash_attention_cuda_core"], f32_path,
-                    f32_row(flash_rows)),
+                    flash_src, by_run("flash_attention_cuda_core"), f32_row(flash_rows)),
         kernel_line("ssd_scan", ssd.TENSOR_CORE, "src/repro_torch/csrc/ssd_scan_tc.cu", ssd_src,
-                    mamba["launches"]["ssd_scan_tc"], main_path, ssd_rows[0]),
+                    by_run("ssd_scan_tc"), ssd_rows[0]),
         kernel_line("ssd_scan", ssd.CUDA_CORE, "src/repro_torch/csrc/ssd_scan.cu", ssd_src,
-                    mamba_f32["ssd_scan_cuda_core"], f32_path, f32_row(ssd_rows)),
+                    by_run("ssd_scan_cuda_core"), f32_row(ssd_rows)),
     ]
     for line in lines[::2]:
         check(line["ms"] < line["previous_ms"],

@@ -10,6 +10,7 @@ reference's ``preferred_element_type=jnp.float32`` einsums do.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional, Tuple
 
 import torch
@@ -279,9 +280,21 @@ def dense_init(
     fan_in: int,
     device=None,
 ) -> torch.Tensor:
-    """N(0, 1/fan_in) drawn in f32 on ``device``, cast to ``dtype``."""
+    """N(0, 1/fan_in) drawn in f32 on ``device``, cast to ``dtype``.
+
+    A leaf of more than two axes (a stacked or expert leaf) is drawn one
+    matrix at a time straight into the leaf in ``dtype``, so the f32
+    transient is one matrix, not the leaf: phi3.5-moe's stacked ``w_gate``
+    would take 40 GB in f32.  On the CPU the values are those of one draw of
+    the whole leaf whenever a matrix's size is a multiple of 16 (torch fills
+    normals 16 at a time)."""
+    if len(shape) > 2:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for idx in itertools.product(*map(range, shape[:-2])):
+            out[idx] = dense_init(generator, shape[-2:], dtype, fan_in, device)
+        return out
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return (w * fan_in ** -0.5).to(dtype)
+    return w.mul_(fan_in ** -0.5).to(dtype)
 
 
 def attn_param_shapes(cfg: ArchConfig) -> dict:

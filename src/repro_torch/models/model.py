@@ -22,8 +22,10 @@ The decode caches keep the reference layout at this boundary: per
 ``pos{i}``, ``k`` and ``v`` of shape (n_periods, B, S, KV, hd) for an
 attention position, ``state`` (n_periods, B, H, P, N) and ``conv``
 (n_periods, B, K-1, conv_dim), both f32, for an SSM position.
-MoE channel mixers and the patch/frame frontends are not ported yet
-(ROADMAP.md queue A); a config that needs them raises.
+A period position's channel mixer is a dense MLP or an MoE block
+(``models/moe.py``, local path), as ``cfg.mlp_pattern`` says.  The
+patch/frame frontends are not ported yet (ROADMAP.md queue A); a config
+that needs them raises.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from repro_torch.models.layers import (
     mlp_param_shapes,
     rms_norm,
 )
+from repro_torch.models.moe import moe_block, moe_param_shapes
 from repro_torch.models.ssm import (
     ssm_block,
     ssm_block_decode,
@@ -69,10 +72,6 @@ def resolve_device(device=None) -> torch.device:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for the parts of the model zoo this port does not run yet."""
-    if "moe" in cfg.mlp_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE channel mixers are not ported yet (ROADMAP.md queue A, the MoE slice)"
-        )
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
@@ -87,12 +86,16 @@ def _mixer_shapes(cfg: ArchConfig, kind: str) -> dict:
     return attn_param_shapes(cfg) if kind == "attn" else ssm_param_shapes(cfg)
 
 
+def _mlp_shapes(cfg: ArchConfig, kind: str) -> dict:
+    return moe_param_shapes(cfg) if kind == "moe" else mlp_param_shapes(cfg)
+
+
 def _position_shapes(cfg: ArchConfig, i: int) -> dict:
     mixer, mlp = cfg.period[i], cfg.mlp_pattern[i]
     shapes = {"norm1": (cfg.d_model,), "mixer": _mixer_shapes(cfg, mixer)}
     if mlp != "none":
         shapes["norm2"] = (cfg.d_model,)
-        shapes["mlp"] = mlp_param_shapes(cfg)
+        shapes["mlp"] = _mlp_shapes(cfg, mlp)
     return shapes
 
 
@@ -229,8 +232,10 @@ def embed_inputs(params: DecoderLM, cfg: ArchConfig, batch: Dict) -> torch.Tenso
     return params.embed[batch["tokens"]]
 
 
-def _channel_mix(blk: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _channel_mix(blk: Block, x: torch.Tensor, cfg: ArchConfig, kind: str) -> torch.Tensor:
     h = rms_norm(x, blk.norm2, cfg.norm_eps)
+    if kind == "moe":
+        return x + moe_block(blk.mlp, h, cfg)
     return x + mlp_block(blk.mlp, h, cfg)
 
 
@@ -249,7 +254,9 @@ def _period_forward(
     are equal); for SSM dict(state, conv).
 
     ``inner_remat`` additionally checkpoints every sublayer (the mixer and
-    the channel mix), as the reference's "sublayer" policy does."""
+    the channel mix), as the reference's "sublayer" policy does.  Each
+    checkpointed call gets its block as an argument, never through a
+    closure: the backward recomputes it after the loop has moved on."""
 
     def ck(f, *args):
         return checkpointed(f, *args) if inner_remat else f(*args)
@@ -259,18 +266,16 @@ def _period_forward(
         blk = period[f"pos{i}"]
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
         if mixer == "attn":
-            y, (k, v) = ck(
-                lambda hh: attention_block(blk.mixer, hh, cfg, positions=positions), h
-            )
+            y, (k, v) = ck(functools.partial(attention_block, positions=positions), blk.mixer, h, cfg)
             carry = {"k": k, "v": v}
         else:
-            y, (state, conv) = ck(lambda hh: ssm_block(blk.mixer, hh, cfg), h)
+            y, (state, conv) = ck(ssm_block, blk.mixer, h, cfg)
             carry = {"state": state, "conv": conv}
         if collect_cache:
             caches[f"pos{i}"] = carry
         x = x + y
         if mlp != "none":
-            x = ck(lambda xx: _channel_mix(blk, xx, cfg), x)
+            x = ck(_channel_mix, blk, x, cfg, mlp)
     return x, caches
 
 
@@ -302,7 +307,7 @@ def _period_decode(
             c["conv"].copy_(conv)
         x = x + y
         if mlp != "none":
-            x = _channel_mix(blk, x, cfg)
+            x = _channel_mix(blk, x, cfg, mlp)
     return x
 
 

@@ -1,7 +1,9 @@
 """The port's serving engine: twins of tests/test_serving.py on the dense
-archs and mamba2-130m, greedy tokens equal to the reference engine's exactly
-on carried weights, and the device rule (the card unless the caller asks for
-the CPU)."""
+archs, mamba2-130m, phi3.5-moe and the hybrid jamba (its SSM state and conv
+tail beside attention K/V in one cache), greedy tokens equal to the
+reference engine's exactly on carried weights, and the device rule (the card
+unless the caller asks for the CPU).  As in tests/test_serving.py, the MoE
+configs run at capacity_factor 16, which drops no token."""
 import dataclasses
 
 import numpy as np
@@ -23,11 +25,17 @@ from repro_torch.weights import params_from_reference  # noqa: E402
 pytestmark = pytest.mark.slow  # compiles XLA programs, like tests/test_serving.py
 
 DENSE = ["internlm2-20b", "h2o-danube-3-4b"]
-PORTED = DENSE + ["mamba2-130m"]
+PORTED = DENSE + ["mamba2-130m", "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b"]
+
+
+def _smoke(configs, arch):
+    """tests/test_serving.py:17-19: f32, and a capacity that drops no token."""
+    return dataclasses.replace(configs.reduce_for_smoke(configs.get(arch)), dtype="float32",
+                               capacity_factor=16.0)
 
 
 def _engine(arch, seed=0):
-    cfg = dataclasses.replace(tconfigs.reduce_for_smoke(tconfigs.get(arch)), dtype="float32")
+    cfg = _smoke(tconfigs, arch)
     model = TM.DecoderLM.from_config(cfg, seed=seed, device="cpu")
     return cfg, model, ServeEngine(cfg, model, max_len=64, device="cpu")
 
@@ -65,8 +73,7 @@ def test_generate_matches_manual_decode(arch):
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_greedy_tokens_equal_reference_engine(arch):
-    rcfg = dataclasses.replace(rconfigs.reduce_for_smoke(rconfigs.get(arch)), dtype="float32")
-    tcfg = dataclasses.replace(tconfigs.reduce_for_smoke(tconfigs.get(arch)), dtype="float32")
+    rcfg, tcfg = _smoke(rconfigs, arch), _smoke(tconfigs, arch)
     params = RM.init_params(jax.random.PRNGKey(5), rcfg)
     model = params_from_reference(jax.tree.map(np.asarray, params), tcfg, device="cpu")
     prompts = _prompts(rcfg.vocab, 3, 20, seed=2)

@@ -31,6 +31,16 @@ def test_train_cli_smoke_on_cpu(tmp_path):
     assert len(done) == 1 and done[0].startswith("done: step 3 loss "), out.stdout
 
 
+def test_train_cli_moe_smoke_on_cpu(tmp_path):
+    """phi3.5-moe's reduced config reaches the MoE block through train_loss."""
+    out = _run("--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--steps", "3", "--device", "cpu",
+               tmp_path=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "arch=phi3.5-moe-42b-a6.6b-smoke" in out.stdout
+    done = [line for line in out.stdout.splitlines() if line.startswith("done:")]
+    assert len(done) == 1 and done[0].startswith("done: step 3 loss "), out.stdout
+
+
 def test_train_cli_refuses_full_size_without_smoke(tmp_path):
     out = _run("--arch", "h2o-danube-3-4b", "--steps", "1", "--device", "cpu", tmp_path=tmp_path)
     assert out.returncode != 0
