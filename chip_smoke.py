@@ -43,6 +43,20 @@ its check does not hold:
    jamba's reduced config in f32 through both CUDA-core kernels (2 flash and
    14 SSD launches a prefill), logits and caches against the plain path and
    greedy tokens equal to the plain path's;
+   then SSD chunk 256: one SSM layer of jamba-1.5-large at full width
+   (0.407 B parameters, B 1 x S 8192), kernel path against plain path in
+   f32 and bf16, one SSD launch a call (``ssm_block`` lines; the SSD sweep
+   has rows at jamba's SSM shape, with the bound at the tile and at the
+   chunk); then phi-3-vision-4.2b at full width and depth through the step
+   builders the reference serves a VLM with: f32 checks at 4 layers (kernel
+   path against plain path on prompts of 576 patch embeddings + 448
+   tokens; prefill against decode after a patch prompt), then
+   ``make_prefill_step`` on 4 such prompts of 1024 positions and 32 greedy
+   ``make_decode_step`` steps (``serve`` line, 32 tensor-core flash launches
+   a prefill); then hubert-xlarge at full width and depth: f32 checks at 4
+   layers at S 1024 and at the ragged S 1000, then ``make_encoder_step`` on
+   8 utterances of 1024 frames (``encode`` line, 48 non-causal tensor-core
+   flash launches);
 6. train h2o-danube-3-4b, after the serving models are freed: an f32 step at
    full width cut to 2 layers (B=1, S=1100: the attention pads its second KV
    chunk, the CE loss drops its 76-token tail) on the card against the same
@@ -123,6 +137,21 @@ MAMBA = Path("mamba2-130m", 8, 2048, 64, 2, 1000)  # 1000: padded to 1024 in the
 # checks cut it to 4 layers (20.9 GB).
 PHI = Path("phi3.5-moe-42b-a6.6b", 4, 1024, 32, 2, 512, layers=24, check_layers=4)
 HYBRID = "jamba-1.5-large-398b"  # served on the card in its reduced config only
+# phi-3-vision-4.2b at full width and depth: 4 prompts of 1024 positions,
+# the first 576 a 24 x 24 CLIP grid of patch embeddings, the other 448 text,
+# then 32 greedy decode steps; f32 checks at 4 layers, 2 x 1024 (serve_new
+# counts decode steps here)
+VLM = Path("phi-3-vision-4.2b", 4, 1024, 32, 2, 1024, check_layers=4)
+VLM_DECODE_PREFIX = 600  # prefill against decode: 576 patches + 24 text, then 8 decode steps
+# hubert-xlarge at full width and depth: 8 utterances of 1024 frames (about
+# 20 s of audio each at 50 frames/s), encoded, no decode; f32 checks at 4
+# layers at S 1024 and at the ragged S 1000
+ENCODER = Path("hubert-xlarge", 8, 1024, 0, 2, 1024, check_layers=4)
+ENCODER_RAGGED_L = 1000
+# one SSM layer of jamba-1.5-large at full width (d 8192, d_inner 16384,
+# 256 heads, conv dim 16640, 0.407 B parameters), B 1 x S 8192, chunk 256:
+# the whole model does not fit one card (one 8-layer period is 88.1 GB in bf16)
+JAMBA_SSM_B, JAMBA_SSM_S = 1, 8192
 CHECK_STEPS = 8
 # prefill against step-by-step decode at a capacity that drops no token:
 # decode routes B tokens a step, prefill B*S (tests/test_serving.py:19)
@@ -174,12 +203,14 @@ def bound(B, Sq, Sk, H, KV, hd, dtype, causal, window):
     return roofline(flops, nbytes, dtype)
 
 
-def ssd_bound(B, S, H, P, G, N, chunk, dtype):
-    """SSD scan: 2Q(QN + QP + 2NP) FLOPs per (batch, head, chunk) — the
-    C Bᵀ scores, the M x product, the C Sᵀ term and the state update —
-    against x read and y written once, dt, B and C once per group and the
-    final f32 state written once."""
-    flops = 2 * chunk * (chunk * N + chunk * P + 2 * N * P) * B * H * (S // chunk)
+def ssd_bound(B, S, H, P, G, N, Q, dtype):
+    """SSD scan: 2Q(QN + QP + 2NP) FLOPs per (batch, head, block of Q rows)
+    — the C Bᵀ scores, the M x product, the C Sᵀ term and the state update
+    — against x read and y written once, dt, B and C once per group and the
+    final f32 state written once.  Q is the chunk for the reference's work,
+    or the kernels' tile (a chunk over 128 runs as sub-tiles, which need
+    fewer FLOPs than the whole chunk)."""
+    flops = 2 * Q * (Q * N + Q * P + 2 * N * P) * B * H * (S // Q)
     es = torch.finfo(dtype).bits // 8
     nbytes = es * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + B * H * P * N + 2 * H)
     return roofline(flops, nbytes, dtype)
@@ -245,6 +276,13 @@ KERNEL_SHAPES = [
     ("window 100", 2, 256, 4, 2, 32, torch.float32, True, 100),
     ("padded S=200", 1, 200, 4, 4, 32, torch.float32, True, None),
     ("non-causal", 2, 128, 4, 4, 64, torch.float32, False, None),
+    # phi-3-vision's prefill (MHA, hd 96) and hubert's encode (MHA, hd 80,
+    # no causal mask): hd padded to 128 in the tensor-core kernel
+    ("phi-3-vision prefill (main path)", VLM.serve_b, VLM.serve_l, 32, 32, 96, torch.bfloat16, True,
+     None),
+    ("hubert encode (main path)", ENCODER.serve_b, ENCODER.serve_l, 16, 16, 80, torch.bfloat16,
+     False, None),
+    ("hubert heads, ragged S, f32", 2, ENCODER_RAGGED_L, 16, 16, 80, torch.float32, False, None),
 ]
 
 
@@ -332,6 +370,10 @@ SSD_SHAPES = [
     ("odd heads", 1, 96, 3, 16, 1, 32, 32, torch.float32, False),
     ("odd heads bf16", 1, 96, 3, 16, 1, 32, 32, torch.bfloat16, False),
     ("strided x/B/C, f32", 2, 512, 24, 64, 1, 128, 128, torch.float32, True),
+    # jamba-1.5-large's SSM at full width: 256 heads of P 64, one group of N
+    # 128, chunk 256 (two sub-tiles of 128 in the kernels)
+    ("jamba width, chunk 256", 1, 8192, 256, 64, 1, 128, 256, torch.bfloat16, True),
+    ("jamba width, chunk 256, f32", 1, 8192, 256, 64, 1, 128, 256, torch.float32, False),
 ]
 NO_LIBRARY_SSD = "none: no single PyTorch call computes the SSD scan"
 
@@ -385,15 +427,20 @@ def ssd_checks(ssd) -> list:
         else:  # f32 runs on the CUDA-core kernel, unchanged: it is its own previous
             kernel_ms = previous_ms = time_ms(run, 20)
         plain_ms = time_ms(lambda: ssd.ssd_scan_plain(*args, chunk=chunk), 3)
-        bound_ms, bound_by = ssd_bound(B, S, H, P, G, N, chunk, dtype)
+        # the bound of the work the kernels do (sub-tiles of ``tile`` rows),
+        # the smaller one; the reference's whole-chunk work beside it
+        tile = ssd.ssd_tile(chunk)
+        bound_ms, bound_by = ssd_bound(B, S, H, P, G, N, tile, dtype)
+        bound_chunk_ms, bound_chunk_by = ssd_bound(B, S, H, P, G, N, chunk, dtype)
         row = dict(
-            shape=name, B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk,
+            shape=name, B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk, tile=tile,
             dtype=str(dtype).replace("torch.", ""), strided=strided,
             variant=ssd.TENSOR_CORE if tc else ssd.CUDA_CORE,
             max_abs_err=max(err_y, err_s), max_abs_err_y=err_y, max_abs_err_state=err_s, tol=tol,
             tol_share=max(share_y, share_s), previous_tol_share=prev_share,
             ms=kernel_ms, previous_ms=previous_ms, plain_ms=plain_ms, library_ms=None,
             library=NO_LIBRARY_SSD, bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms_at_chunk=bound_chunk_ms, bound_at_chunk_by=bound_chunk_by,
         )
         print("ssd_kernel " + json.dumps(row), flush=True)
         rows.append(row)
@@ -676,6 +723,250 @@ def serve_hybrid_smoke(configs, M, ServeEngine, kernels) -> dict:
     del model
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The SSD chunk of 256 at jamba's width, the VLM and the audio encoder
+# ---------------------------------------------------------------------------
+def jamba_ssm_block_check(configs, M, kernels) -> dict:
+    """One SSM layer of jamba-1.5-large at full width, drawn on the card as
+    the model draws it, B 1 x S 8192 (chunk 256): the kernel path against
+    the plain path (the chunked SSD at chunk 256), one SSD launch a call.
+    f32 is held at the model-level 2e-3, element by element.  bf16 needs
+    more: the two paths round the SSD output to bf16 at other places (the
+    kernel once after y + D·x, the chunked path per chunk), one bf16 step is
+    2^-8 of a value, and the out projection sums 16384 such differences into
+    each output.  So bf16 y is held at the reference's bf16 kernel tolerance
+    (2e-2) of its largest magnitude (a logits-scale allowance); the state,
+    f32 on both paths, element by element at 2e-2.  Returns the launch
+    counts by dtype."""
+    from repro_torch.kernels import ssd
+    from repro_torch.models.ssm import ssm_block, ssm_param_shapes
+
+    B, S = JAMBA_SSM_B, JAMBA_SSM_S
+    out = {}
+    for dtype, tol in (("float32", MODEL_TOL), ("bfloat16", SSD_TOL[torch.bfloat16])):
+        cfg = dataclasses.replace(configs.get(HYBRID), dtype=dtype)
+        g = torch.Generator(device="cuda").manual_seed(9)
+        params = M._init_tree(g, torch.device("cuda"), ssm_param_shapes(cfg), cfg)
+        n_params = sum(t.numel() for t in params.values())
+        x = torch.randn(B, S, cfg.d_model, generator=g, device="cuda").to(cfg.torch_dtype)
+        variant = "tc" if dtype == "bfloat16" else "cuda_core"
+        want = {"ssd_scan": 1, f"ssd_scan_{variant}": 1}
+        with torch.inference_mode():
+            zero_counts(kernels)
+            y_k, (st_k, _) = ssm_block(params, x, cfg)
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+            check_counts(f"{HYBRID} ssm_block", counts, want, f"{dtype} kernel path (one call)")
+            y_x, (st_x, _) = ssm_block(params, x, dataclasses.replace(cfg, use_kernels=False))
+            kernel_ms = time_ms(lambda: ssm_block(params, x, cfg), 3)
+            plain_ms = time_ms(lambda: ssm_block(params, x, dataclasses.replace(cfg, use_kernels=False)), 3)
+        check(bool(torch.isfinite(y_k).all()), f"{HYBRID} ssm_block {dtype}: y not finite")
+        y_max = y_x.float().abs().max().item()
+        ok, err, share = close(y_k, y_x, tol, tol * y_max if dtype == "bfloat16" else None)
+        ok_s, err_s, share_s = close(st_k, st_x, tol)
+        row = dict(arch=HYBRID, layer="ssm_block", dtype=dtype, params=n_params, batch=B, seq=S,
+                   d_model=cfg.d_model, d_inner=cfg.d_inner, heads=cfg.ssm_heads,
+                   conv_dim=cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state, chunk=cfg.ssm_chunk,
+                   tile=ssd.ssd_tile(cfg.ssm_chunk), tol=tol, max_abs_err_y=err, tol_share_y=share,
+                   y_atol="tol * y_max_abs" if dtype == "bfloat16" else "tol",
+                   max_abs_err_state=err_s, tol_share_state=share_s, y_max_abs=y_max,
+                   kernel_path_ms=kernel_ms,
+                   plain_path_ms=plain_ms, launches=counts)
+        print("ssm_block " + json.dumps(row), flush=True)
+        check(ok and ok_s, f"{HYBRID} ssm_block {dtype}: kernel path vs plain path differ by "
+                           f"{err} (y), {err_s} (state), tol {tol}")
+        out[dtype] = counts
+        del params, x, y_k, y_x, st_k, st_x
+        torch.cuda.empty_cache()
+    return out
+
+
+def vlm_batch(cfg, B: int, L: int, seed: int) -> dict:
+    """A VLM prompt: seeded random patch embeddings over the first
+    ``n_frontend_tokens`` positions (one 24 x 24 CLIP grid), text tokens
+    after them (their ids under the patches are overwritten)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (B, L), generator=g, device="cuda")
+    patches = torch.randn(B, cfg.n_frontend_tokens, cfg.d_model, generator=g, device="cuda")
+    return {"tokens": tokens, "patch_embeds": patches.to(cfg.torch_dtype)}
+
+
+def vlm_f32_checks(configs, M, kernels) -> dict:
+    """phi-3-vision in f32 at full width, 4 layers, through the step
+    builders: the kernel path's prefill logits against the plain path's on
+    2 prompts of 576 patches + 448 text tokens; then decode after a patch
+    prompt — the prefill of 600 + 8 positions against the prefill of 600
+    and 8 decode steps.  Returns the kernel-path prefill's launch counts."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.serving.engine import grow_kv
+
+    cfg = VLM.config(configs, check=True)
+    model = M.DecoderLM.from_config(cfg, seed=0, device="cuda")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    batch = vlm_batch(cfg, VLM.check_b, VLM.check_l, 2)
+    zero_counts(kernels)
+    logits_k, _ = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    check_counts(VLM.arch, counts, prefill_counts(cfg), "f32 prefill")
+    logits_x, _ = make_prefill_step(dataclasses.replace(cfg, use_kernels=False))(model, batch)
+    ok, err, _ = close(logits_k, logits_x, MODEL_TOL)
+    print(f"serve {VLM.arch} f32 {cfg.n_layers} layers B={VLM.check_b} L={VLM.check_l} "
+          f"({cfg.n_frontend_tokens} patches): kernel vs plain prefill logits max abs err {err}", flush=True)
+    check(ok, f"{VLM.arch} f32 prefill logits: kernel path vs plain path differ by {err}")
+    check(bool(torch.isfinite(logits_k).all()), f"{VLM.arch} f32 prefill logits not finite")
+
+    n0, toks = VLM_DECODE_PREFIX, batch["tokens"]
+    logits_p, _ = prefill(model, {**batch, "tokens": toks[:, : n0 + CHECK_STEPS]})
+    _, (caches, kv_len) = prefill(model, {**batch, "tokens": toks[:, :n0]})
+    state = (grow_kv(caches, CHECK_STEPS), kv_len)
+    for i in range(CHECK_STEPS):
+        logits_d, state = decode(model, state, toks[:, n0 + i : n0 + i + 1], n0 + i)
+    ok, err, _ = close(logits_p, logits_d, MODEL_TOL)
+    print(f"serve {VLM.arch} f32: prefill of {n0 + CHECK_STEPS} vs prefill of {n0} and "
+          f"{CHECK_STEPS} decode steps max abs err {err}", flush=True)
+    check(ok, f"{VLM.arch} f32 prefill vs decode logits differ by {err}")
+    check(bool(torch.isfinite(logits_d).all()), f"{VLM.arch} f32 decode logits not finite")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def vlm_main_path(configs, M, kernels) -> dict:
+    """phi-3-vision's main path at full width and depth, bf16: the
+    reference's route for a VLM (its ServeEngine feeds tokens only) —
+    ``make_prefill_step`` on 4 prompts of 576 patches + 448 text tokens,
+    then 32 greedy ``make_decode_step`` steps, counts read around both."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.serving.engine import grow_kv
+
+    cfg = VLM.config(configs)
+    model, init_peak, weight_bytes = from_config_measured(M, cfg)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    B, L, steps = VLM.serve_b, VLM.serve_l, VLM.serve_new
+    batch = vlm_batch(cfg, B, L, 3)
+    prefill(model, batch)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts(kernels)
+    t0 = time.monotonic()
+    logits, (caches, kv_len) = prefill(model, batch)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    check(tuple(logits.shape) == (B, cfg.vocab), f"{VLM.arch} logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{VLM.arch} bf16 prefill logits not finite")
+    check_caches(VLM.arch, caches, cfg, B, L)
+    state = (grow_kv(caches, steps), kv_len)
+    tok = torch.argmax(logits, -1)[:, None]
+    generated = [tok]
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    for i in range(steps):
+        logits_d, state = decode(model, state, tok, L + i)
+        tok = torch.argmax(logits_d, -1)[:, None]
+        generated.append(tok)
+    torch.cuda.synchronize()
+    t3 = time.monotonic()
+    counts = read_counts(kernels)
+    check_counts(VLM.arch, counts, prefill_counts(cfg), "main path (one prefill, decode steps)")
+    check(bool(torch.isfinite(logits_d).all()), f"{VLM.arch} bf16 decode logits not finite")
+    gen = torch.cat(generated, dim=1)
+    check(bool(((gen >= 0) & (gen < cfg.vocab)).all()), "token outside [0, vocab)")
+    prefill_s, decode_s = t1 - t0, t3 - t2
+    stats = dict(
+        arch=VLM.arch, layers=cfg.n_layers, dtype=cfg.dtype, batch=B, prompt_len=L,
+        patch_positions=cfg.n_frontend_tokens, decode_steps=steps, route="make_prefill_step/make_decode_step",
+        weights_gb=weight_bytes / 1e9, from_config_peak_gb=init_peak / 1e9,
+        prefill_s=prefill_s, prefill_tok_s=B * L / prefill_s, decode_s=decode_s,
+        decode_ms_per_step=decode_s / steps * 1e3, decode_tok_s=B * steps / decode_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+    )
+    print("serve " + json.dumps(stats), flush=True)
+    with torch.inference_mode():
+        profile_once(lambda: prefill(model, batch), VLM.arch, "prefill")
+        cur = torch.argmax(logits, -1)[:, None]
+        profile_once(lambda: decode(model, (state[0], kv_len), cur, L), VLM.arch, "decode_step")
+    del model, state, caches
+    torch.cuda.empty_cache()
+    return stats
+
+
+def frames(cfg, B: int, S: int, seed: int) -> dict:
+    """Seeded random frame embeddings (the reference stubs the conv feature
+    extractor), in the model dtype."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, S, cfg.d_model, generator=g, device="cuda")
+    return {"frame_embeds": x.to(cfg.torch_dtype)}
+
+
+def encoder_f32_checks(configs, M, kernels) -> dict:
+    """hubert in f32 at full width, 4 layers, through ``make_encoder_step``:
+    per-frame logits of the kernel path (the CUDA-core flash kernel without
+    the causal mask) against the plain path at S 1024 and at the ragged S
+    1000.  Returns the launch counts by S."""
+    from repro_torch.launch.steps import make_encoder_step
+
+    cfg = ENCODER.config(configs, check=True)
+    model = M.DecoderLM.from_config(cfg, seed=0, device="cuda")
+    encode = make_encoder_step(cfg)
+    plain = make_encoder_step(dataclasses.replace(cfg, use_kernels=False))
+    out = {}
+    for S in (ENCODER.check_l, ENCODER_RAGGED_L):
+        batch = frames(cfg, ENCODER.check_b, S, 4)
+        zero_counts(kernels)
+        logits_k = encode(model, batch)
+        torch.cuda.synchronize()
+        out[S] = read_counts(kernels)
+        check_counts(ENCODER.arch, out[S], prefill_counts(cfg), f"f32 encode S={S}")
+        logits_x = plain(model, batch)
+        check(tuple(logits_k.shape) == (ENCODER.check_b, S, cfg.vocab), f"logits {tuple(logits_k.shape)}")
+        check(bool(torch.isfinite(logits_k).all()), f"{ENCODER.arch} f32 logits not finite")
+        ok, err, _ = close(logits_k, logits_x, MODEL_TOL)
+        print(f"encode {ENCODER.arch} f32 {cfg.n_layers} layers B={ENCODER.check_b} S={S}: "
+              f"kernel vs plain per-frame logits max abs err {err}", flush=True)
+        check(ok, f"{ENCODER.arch} f32 S={S} logits: kernel path vs plain path differ by {err}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_main_path(configs, M, kernels) -> dict:
+    """hubert's main path at full width and depth, bf16: ``make_encoder_step``
+    on 8 utterances of 1024 frames, counts read around it."""
+    from repro_torch.launch.steps import make_encoder_step
+
+    cfg = ENCODER.config(configs)
+    model, init_peak, weight_bytes = from_config_measured(M, cfg)
+    encode = make_encoder_step(cfg)
+    B, S = ENCODER.serve_b, ENCODER.serve_l
+    batch = frames(cfg, B, S, 5)
+    encode(model, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.monotonic()
+    logits = encode(model, batch)
+    torch.cuda.synchronize()
+    encode_s = time.monotonic() - t0
+    counts = read_counts(kernels)
+    check_counts(ENCODER.arch, counts, prefill_counts(cfg), "main path (one encode)")
+    check(tuple(logits.shape) == (B, S, cfg.vocab), f"{ENCODER.arch} logits {tuple(logits.shape)}")
+    check(logits.dtype == torch.float32 and bool(torch.isfinite(logits).all()),
+          f"{ENCODER.arch} bf16 per-frame logits not finite f32")
+    stats = dict(
+        arch=ENCODER.arch, layers=cfg.n_layers, dtype=cfg.dtype, batch=B, frames=S,
+        route="make_encoder_step", weights_gb=weight_bytes / 1e9, from_config_peak_gb=init_peak / 1e9,
+        encode_s=encode_s, frames_per_s=B * S / encode_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+    )
+    print("encode " + json.dumps(stats), flush=True)
+    profile_once(lambda: encode(model, batch), ENCODER.arch, "encode")
+    del model, logits
+    torch.cuda.empty_cache()
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -986,6 +1277,11 @@ def main() -> None:
     phi_f32 = serve_f32_checks(configs, M, PHI, kernels)
     phi = serve_main_path(configs, M, ServeEngine, PHI, kernels)  # frees the model
     hybrid = serve_hybrid_smoke(configs, M, ServeEngine, kernels)
+    jamba_block = jamba_ssm_block_check(configs, M, kernels)
+    vlm_f32 = vlm_f32_checks(configs, M, kernels)
+    vlm = vlm_main_path(configs, M, kernels)
+    encoder_f32 = encoder_f32_checks(configs, M, kernels)
+    encoder = encoder_main_path(configs, M, kernels)
 
     train_f32_check(configs, kernels)
     train_main_path(configs, kernels, card)
@@ -1000,7 +1296,14 @@ def main() -> None:
     runs = {f"{DANUBE.arch} bf16 main path": danube["launches"], f"{PHI.arch} bf16 main path": phi["launches"],
             f"{MAMBA.arch} bf16 main path": mamba["launches"], f"{DANUBE.arch} f32 check": danube_f32,
             f"{PHI.arch} f32 check": phi_f32, f"{MAMBA.arch} f32 check": mamba_f32,
-            f"{HYBRID}-smoke f32 ServeEngine": hybrid}
+            f"{HYBRID}-smoke f32 ServeEngine": hybrid,
+            f"{HYBRID} ssm_block f32 (full width, chunk 256)": jamba_block["float32"],
+            f"{HYBRID} ssm_block bf16 (full width, chunk 256)": jamba_block["bfloat16"],
+            f"{VLM.arch} bf16 main path (make_prefill_step)": vlm["launches"],
+            f"{VLM.arch} f32 check": vlm_f32,
+            f"{ENCODER.arch} bf16 main path (make_encoder_step)": encoder["launches"],
+            f"{ENCODER.arch} f32 check S={ENCODER.check_l}": encoder_f32[ENCODER.check_l],
+            f"{ENCODER.arch} f32 check S={ENCODER_RAGGED_L}": encoder_f32[ENCODER_RAGGED_L]}
 
     def by_run(kernel: str) -> dict:
         return {run: counts[kernel] for run, counts in runs.items() if counts[kernel]}

@@ -32,8 +32,25 @@
 // overflow to inf, and inf * 0 would be NaN.
 //
 // Shared memory: x 128 x 64, B and C/M 128 x 129, S 64 x 129 and three
-// vectors of 128, all f32: 199,424 bytes, one block an SM.  Limits: chunk
+// vectors of 128, all f32: 199,424 bytes, one block an SM.  Limits: tile
 // Q <= 128, P <= 64, N <= 128 (mamba2-130m: 128, 64, 128).
+//
+// Chunk and tile: the loop below runs over tiles of Q rows.  A chunk longer
+// than 128 (jamba-1.5-large's 256) runs as chunk / Q sub-tiles of Q rows
+// (Q the largest divisor of the chunk up to 128, kernels/ssd.py::ssd_tile),
+// the state carried between them; a 256-row tile would need 256 KB of
+// shared memory here, past the 227 KB a block can have.  a_cum is still the
+// chunk's: one sequential sum over the whole chunk, carried from sub-tile to
+// sub-tile (a_base, the sum at the end of the previous sub-tile, 0 at a
+// chunk's start), so every exp(a_i - a_j) inside a sub-tile is the one the
+// reference takes.  A pair (i, j) across a sub-tile boundary reaches y
+// through the state: exp(a_i - a_base) exp(a_base - a_j), the same decay up
+// to one rounding of each factor.  So the inter-tile term is
+// (C S^T) o exp(a_i - a_base) and the update S = exp(a_end - a_base) S + ...,
+// with a_end the sum at the sub-tile's last row.  (Restarting the sum at each
+// sub-tile is the same function in exact arithmetic, but its a_cum rounds
+// apart from the reference's: at jamba's widths y moved by about 1e-3, past
+// the f32 tolerance of 2e-4.)
 //
 // Bound: the work is 2Q(QN + QP + 2NP) FLOPs a (b, h, chunk) against a few
 // bytes a row, so tensor-core FLOPs bound it at these widths.  This first
@@ -69,7 +86,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ D,
-    T* __restrict__ y, float* __restrict__ state_out, int S, int H, int P, int N, int Q, int rep,
+    T* __restrict__ y, float* __restrict__ state_out, int S, int H, int P, int N, int chunk,
+    int Q, int rep,
     int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb, int64_t dt_ss, int64_t dt_sh,
     int64_t b_sb, int64_t b_ss, int64_t b_sg, int64_t c_sb, int64_t c_ss, int64_t c_sg) {
   extern __shared__ float smem[];
@@ -78,7 +96,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
   float* cm = bs + Q_MAX * NS;      // [Q_MAX][NS]: C, then M over it
   float* ss = cm + Q_MAX * NS;      // [P_MAX][NS]: the carried state
   float* s_dt = ss + P_MAX * NS;    // [Q_MAX]
-  float* s_a = s_dt + Q_MAX;        // [Q_MAX] a_cum
+  float* s_a = s_dt + Q_MAX;        // [Q_MAX] a_cum, the chunk's sum at each row of the tile
   float* s_w = s_a + Q_MAX;         // [Q_MAX] exp(a_tot - a_cum) * dt
 
   const int tid = threadIdx.x;
@@ -99,8 +117,10 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
 
   for (int idx = tid; idx < P_MAX * NS; idx += THREADS) ss[idx] = 0.f;
 
+  float a_base = 0.f;  // a_cum at the end of the previous sub-tile of this chunk
   for (int s0 = 0; s0 < S; s0 += Q) {
-    __syncthreads();  // the last chunk's reads of every tile are done
+    __syncthreads();  // the last tile's reads of every tile are done
+    if (s0 % chunk == 0) a_base = 0.f;  // a chunk starts
 
     // 1. stage the chunk; rows past Q (and x's columns past P) are zero
     for (int idx = tid; idx < Q_MAX * P_MAX; idx += THREADS) {
@@ -124,17 +144,17 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
       // another order (a parallel scan) moves y by 1e-3 at f32.  The product
       // and the sum are rounded separately (no fused multiply-add), as an
       // elementwise product followed by a cumsum rounds them.
-      float run = 0.f;
+      float run = a_base;
       for (int i = 0; i < Q; ++i) {
         run = __fadd_rn(run, __fmul_rn(s_dt[i], Ah));
         s_a[i] = run;
       }
     }
     __syncthreads();
-    const float a_tot = s_a[Q - 1];
+    const float a_tot = s_a[Q - 1];  // a_end: the sum at the tile's last row
     if (tid < Q) s_w[tid] = expf(a_tot - s_a[tid]) * s_dt[tid];
 
-    // 2. inter-chunk: acc[i, p] = exp(a_i) * sum_n C[i, n] S[p, n]
+    // 2. inter-tile: acc[i, p] = exp(a_i - a_base) * sum_n C[i, n] S[p, n]
     float acc[8][4];
 #pragma unroll
     for (int r = 0; r < 8; ++r)
@@ -155,7 +175,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int i = ty + 16 * r;
-      const float e = i < Q ? expf(s_a[i]) : 0.f;
+      const float e = i < Q ? expf(s_a[i] - a_base) : 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[r][c] *= e;
     }
@@ -206,7 +226,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
         for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(mv[r], xv[c], acc[r][c]);
     }
 
-    // 5. state: S[p, n] = exp(a_tot) S[p, n] + sum_j x[j, p] (w_j B[j, n]);
+    // 5. state: S[p, n] = exp(a_tot - a_base) S[p, n] + sum_j x[j, p] (w_j B[j, n]);
     //    this thread owns p = ty + 16 r, n = tx + 16 c (step 2's reads of S
     //    finished before the barriers above)
     float su[4][8];
@@ -227,7 +247,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
 #pragma unroll
         for (int c = 0; c < 8; ++c) su[r][c] = fmaf(xv[r], bv[c], su[r][c]);
     }
-    const float decay = expf(a_tot);
+    const float decay = expf(a_tot - a_base);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int p = ty + 16 * r;
@@ -250,6 +270,7 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
         if (p < P) store_out(row + p, acc[r][c] + xs[i * P_MAX + p] * Dh);
       }
     }
+    a_base = a_tot;
   }
 
   __syncthreads();
@@ -260,7 +281,8 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(
 template <typename T>
 cudaError_t launch(const void* x, const float* dt, const float* A, const void* Bm,
                    const void* Cm, const float* D, void* y, float* state, int B, int S, int H,
-                   int P, int G, int N, int Q, const long long* st, cudaStream_t stream) {
+                   int P, int G, int N, int chunk, int Q, const long long* st,
+                   cudaStream_t stream) {
   const size_t smem = SMEM_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -268,8 +290,8 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
   const dim3 grid(H, B);
   ssd_scan_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm), D,
-      static_cast<T*>(y), state, S, H, P, N, Q, H / G, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11]);
+      static_cast<T*>(y), state, S, H, P, N, chunk, Q, H / G, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
@@ -281,15 +303,17 @@ extern "C" {
 // are float32.  Strides are in elements, for the batch, sequence and
 // head/group dims of x, dt, B and C (the last dim of x, B and C must have
 // stride 1; A and D are contiguous).  y is a contiguous (B, S, H, P) and
-// state a contiguous (B, H, P, N).  S must be a multiple of the chunk Q.
+// state a contiguous (B, H, P, N).  S must be a multiple of the chunk, and
+// the chunk a multiple of the tile Q (1..128), the rows taken at a time.
 // Returns a cudaError_t: 0 when the launch was accepted.
 int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
                  const void* D, void* y, void* state, int dtype, int B, int S, int H, int P, int G,
-                 int N, int Q, long long x_sb, long long x_ss, long long x_sh, long long dt_sb,
-                 long long dt_ss, long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
+                 int N, int chunk, int Q, long long x_sb, long long x_ss, long long x_sh,
+                 long long dt_sb, long long dt_ss, long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
                  long long c_sb, long long c_ss, long long c_sg, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || H < 1 || G < 1 || H % G != 0 || P < 1 || P > P_MAX ||
-      N < 1 || N > N_MAX || Q < 1 || Q > Q_MAX || S % Q != 0)
+      N < 1 || N > N_MAX || chunk < 1 || S % chunk != 0 || Q < 1 || Q > Q_MAX ||
+      chunk % Q != 0)
     return (int)cudaErrorInvalidValue;
   const long long st[12] = {x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh,
                             b_sb, b_ss, b_sg, c_sb, c_ss, c_sg};
@@ -299,9 +323,10 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm, c
   float* sf = static_cast<float*>(state);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, dtf, Af, Bm, Cm, Df, y, sf, B, S, H, P, G, N, Q, st, s);
+    return (int)launch<float>(x, dtf, Af, Bm, Cm, Df, y, sf, B, S, H, P, G, N, chunk, Q, st, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, dtf, Af, Bm, Cm, Df, y, sf, B, S, H, P, G, N, Q, st, s);
+    return (int)launch<__nv_bfloat16>(x, dtf, Af, Bm, Cm, Df, y, sf, B, S, H, P, G, N, chunk, Q,
+                                      st, s);
   return (int)cudaErrorInvalidValue;
 }
 

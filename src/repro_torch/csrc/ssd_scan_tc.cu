@@ -45,6 +45,19 @@
 // thread, product and sum rounded separately (a parallel scan moved f32 y by
 // 1e-3), and exp(a_i - a_j) is taken only where i >= j.
 //
+// Chunk and tile: the chunk loop runs over tiles of Q <= 128 rows.  A
+// longer chunk (jamba-1.5-large's 256) runs as chunk / Q sub-tiles (Q the
+// largest divisor of the chunk up to 128, kernels/ssd.py::ssd_tile) with the
+// state carried between them; keeping the 128-row tiles keeps the 89 KB of
+// shared memory and two blocks an SM (256-row tiles would take over 170 KB,
+// one block).  As in ssd_scan.cu, a_cum stays the chunk's single sequential
+// sum, carried across its sub-tiles (a_base: the sum at the end of the
+// previous sub-tile, 0 at a chunk's start); the inter-tile term is
+// (C S^T) o exp(a_i - a_base) and the update S = exp(a_end - a_base) S + ...
+// A pair across a sub-tile boundary then decays by exp(a_i - a_base)
+// exp(a_base - a_j), the reference's exp(a_i - a_j) up to one rounding of
+// each factor.
+//
 // The wrapper sends here only input that cp.async can read 16 bytes at a
 // time: P and N multiples of 8, strides multiples of 8 elements, 16-byte
 // aligned bases (mamba2-130m: x a slice of the fused xBC activation, row
@@ -96,8 +109,8 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t ro
 __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const float* __restrict__ D,
-    bf16* __restrict__ y, float* __restrict__ state_out, int S, int H, int P, int N, int Q,
-    int rep, int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb, int64_t dt_ss,
+    bf16* __restrict__ y, float* __restrict__ state_out, int S, int H, int P, int N, int chunk,
+    int Q, int rep, int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb, int64_t dt_ss,
     int64_t dt_sh, int64_t b_sb, int64_t b_ss, int64_t b_sg, int64_t c_sb, int64_t c_ss,
     int64_t c_sg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -107,7 +120,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
   bf16* s_hi = bs;                                 //   [P_MAX][NLD] hi
   bf16* s_lo = bs + P_MAX * NLD;                   //   [P_MAX][NLD] lo
   float* s_dt = reinterpret_cast<float*>(bs + Q_MAX * NLD);  // [Q_MAX], 0 past Q
-  float* s_a = s_dt + Q_MAX;                                   // [Q_MAX] a_cum, a_tot past Q
+  float* s_a = s_dt + Q_MAX;  // [Q_MAX] a_cum (the chunk's sum at each row), a_tot past Q
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -129,7 +142,9 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) st[n][e] = 0.f;
 
+  float a_base = 0.f;  // a_cum at the end of the previous sub-tile of this chunk
   for (int s0 = 0; s0 < S; s0 += Q) {
+    if (s0 % chunk == 0) a_base = 0.f;  // a chunk starts
     // 1. x, C and dt of the chunk (the last chunk's reads of x and C are done)
     load_rows<XLD, P_MAX / 8>(xs, xb + (int64_t)s0 * x_ss, x_ss, 0, Q, P);
     load_rows<NLD, N_MAX / 8>(cs, cb + (int64_t)s0 * c_ss, c_ss, 0, Q, N);
@@ -140,7 +155,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
     if (tid == 0) {
       // a_cum: a sequential f32 sum, product and sum rounded separately, as
       // the TPU kernel's elementwise product and cumsum round them.
-      float run = 0.f;
+      float run = a_base;
 #pragma unroll 8
       for (int i = 0; i < Q; ++i) {
         run = __fadd_rn(run, __fmul_rn(s_dt[i], Ah));
@@ -151,7 +166,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
     __syncthreads();
     const float a_tot = s_a[Q - 1];
 
-    // 2. y = exp(a_i) (C S^T), the state entering the chunk (none at the first)
+    // 2. y = exp(a_i - a_base) (C S^T), the state entering the tile (none at the first)
     float yacc[2][P_MAX / 8][4];
 #pragma unroll
     for (int u = 0; u < 2; ++u)
@@ -181,7 +196,8 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
             tc::mma(yacc[u][2 * np + 1], af, lf[2], lf[3]);
           }
         }
-        const float e0 = expf(s_a[mt * 16 + g]), e1 = expf(s_a[mt * 16 + g + 8]);
+        const float e0 = expf(s_a[mt * 16 + g] - a_base);
+        const float e1 = expf(s_a[mt * 16 + g + 8] - a_base);
 #pragma unroll
         for (int n = 0; n < P_MAX / 8; ++n) {
           yacc[u][n][0] *= e0;
@@ -265,8 +281,8 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
       }
     }
 
-    // 5. S = exp(a_tot) S + (w o x)^T B; this warp's rows p = 16 warp + ...
-    const float decay = expf(a_tot);
+    // 5. S = exp(a_tot - a_base) S + (w o x)^T B; this warp's rows p = 16 warp + ...
+    const float decay = expf(a_tot - a_base);
 #pragma unroll
     for (int n = 0; n < N_MAX / 8; ++n)
 #pragma unroll
@@ -311,6 +327,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
         *reinterpret_cast<uint32_t*>(s_lo + off) = lo;
       }
     }
+    a_base = a_tot;
   }
 
   float* so = state_out + ((int64_t)b * H + h) * P * N;
@@ -336,10 +353,11 @@ extern "C" {
 // P and N must be multiples of 8, the strides of x, B and C multiples of 8,
 // and x, B, C, y and the state 16-byte aligned.  y is a contiguous
 // (B, S, H, P) and state a contiguous (B, H, P, N).  S must be a multiple of
-// the chunk Q.  Returns a cudaError_t: 0 when the launch was accepted.
+// the chunk, and the chunk a multiple of the tile Q (1..128), the rows taken
+// at a time.  Returns a cudaError_t: 0 when the launch was accepted.
 int ssd_scan_tc_fwd(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
                     const void* D, void* y, void* state, int B, int S, int H, int P, int G,
-                    int N, int Q, long long x_sb, long long x_ss, long long x_sh,
+                    int N, int chunk, int Q, long long x_sb, long long x_ss, long long x_sh,
                     long long dt_sb, long long dt_ss, long long dt_sh, long long b_sb,
                     long long b_ss, long long b_sg, long long c_sb, long long c_ss,
                     long long c_sg, void* stream) {
@@ -349,7 +367,8 @@ int ssd_scan_tc_fwd(const void* x, const void* dt, const void* A, const void* Bm
   for (const void* p : {x, Bm, Cm, (const void*)y, (const void*)state})
     aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   if (B < 1 || B > 65535 || S < 1 || H < 1 || G < 1 || H % G != 0 || P < 1 || P > P_MAX ||
-      N < 1 || N > N_MAX || Q < 1 || Q > Q_MAX || S % Q != 0 || !aligned)
+      N < 1 || N > N_MAX || chunk < 1 || S % chunk != 0 || Q < 1 || Q > Q_MAX ||
+      chunk % Q != 0 || !aligned)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(ssd_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -359,7 +378,8 @@ int ssd_scan_tc_fwd(const void* x, const void* dt, const void* A, const void* Bm
   ssd_tc_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), static_cast<const float*>(D),
-      static_cast<bf16*>(y), static_cast<float*>(state), S, H, P, N, Q, H / G, x_sb, x_ss, x_sh,
+      static_cast<bf16*>(y), static_cast<float*>(state), S, H, P, N, chunk, Q, H / G, x_sb, x_ss,
+      x_sh,
       dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg);
   return (int)cudaGetLastError();
 }

@@ -9,12 +9,29 @@ h // (H // G); per (b, h) an f32 (P, N) state is carried over chunks of
 ``(C Bᵀ ∘ L ∘ dt_j) x`` with ``L[i, j] = exp(a_i − a_j)`` for i ≥ j, the
 inter-chunk term ``(C Sᵀ) ∘ exp(a_cum)``, the state update
 ``S' = exp(a_tot) S + xᵀ(exp(a_tot − a_cum)·dt·B)``; it returns
-``y + D·x`` rounded once to x's dtype and the final state in f32.  chunk ≤
-128, P ≤ 64, N ≤ 128 (mamba2-130m: 128, 64, 128).  x, B and C are read
-through their strides (x is a slice of the fused xBC activation).
+``y + D·x`` rounded once to x's dtype and the final state in f32.  Any
+chunk that divides S, as the Pallas kernel; P ≤ 64, N ≤ 128 (mamba2-130m:
+chunk 128, P 64, N 128; jamba-1.5-large: chunk 256, P 64, N 128).  x, B and
+C are read through their strides (x is a slice of the fused xBC activation).
 
-What bounds it on the card: 2Q(QN + QP + 2NP) FLOPs per (b, h, chunk)
-against a few bytes per row, so tensor-core FLOPs at these widths.  The two
+**The tile is not the chunk.**  Both kernels keep 128-row tiles in shared
+memory (a 256-row tile of the f32 kernel would take 256 KB of the SM's 227,
+and would halve the bf16 kernel's two blocks an SM).  A chunk of ``chunk``
+rows runs as ``chunk / tile`` sub-tiles of ``tile = ssd_tile(chunk)`` rows,
+the largest divisor of the chunk that is at most 128, with the (P, N) state
+carried from one sub-tile to the next.  ``a_cum`` stays the chunk's: one
+sequential f32 sum over the whole chunk, carried across its sub-tiles, so
+every decay inside a sub-tile is the reference's ``exp(a_i − a_j)``.  A
+pair across a sub-tile boundary decays through the state, by
+``exp(a_i − a_base)·exp(a_base − a_j)`` (``a_base`` the sum at the end of
+the previous sub-tile, 0 at the chunk's start): the same function, up to
+one rounding of each factor.  Restarting the sum at each sub-tile would be
+the same function too, but its ``a_cum`` rounds apart from the chunk's sum
+(``chunk_a_cum``): at jamba's widths that moved f32 y by about 1e-3, past
+the 2e-4 tolerance.  A call stays one launch.
+
+What bounds it on the card: 2Q(QN + QP + 2NP) FLOPs per (b, h, tile of Q
+rows) against a few bytes per row, so tensor-core FLOPs at these widths.  The two
 variants, each one block per (b, h) looping over the chunks:
 
 - ``tensor_core`` (``csrc/ssd_scan_tc.cu``, bf16 x/B/C only): the four
@@ -50,7 +67,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-CHUNK_MAX, P_MAX, N_MAX = 128, 64, 128
+TILE_MAX, P_MAX, N_MAX = 128, 64, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -61,7 +78,7 @@ def _kernel():
     lib = _build.load("ssd_scan")
     fn = lib.ssd_scan_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
@@ -73,12 +90,19 @@ def _tc_kernel():
     lib = _build.load("ssd_scan_tc")
     fn = lib.ssd_scan_tc_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     lib.ssd_scan_tc_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_tc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ssd_tile(chunk: int) -> int:
+    """The rows a kernel takes of a chunk at a time: the largest divisor of
+    ``chunk`` that is at most ``TILE_MAX`` (256 -> 128, 200 -> 100, a prime
+    above 128 -> 1).  Pure Python."""
+    return next(t for t in range(min(chunk, TILE_MAX), 0, -1) if chunk % t == 0)
 
 
 def variant(
@@ -137,8 +161,8 @@ def _check(x, dt, A, Bm, Cm, D, chunk: int) -> None:
         )
     if min(Bb, S, H, P, G, N) < 1 or H % G:
         raise ValueError(f"ssd_scan kernel: empty input or H={H} not a multiple of G={G}")
-    if not 1 <= chunk <= CHUNK_MAX:
-        raise ValueError(f"ssd_scan kernel takes chunk 1..{CHUNK_MAX}, got {chunk}")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan kernel takes chunk >= 1, got {chunk}")
     if S % chunk:
         raise ValueError(f"ssd_scan kernel: S={S} is not a multiple of chunk={chunk}")
     if P > P_MAX or N > N_MAX:
@@ -181,7 +205,7 @@ def _launch(fn, err, x, dt, A, Bm, Cm, D, extra, chunk):
         rc = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             D.data_ptr(), y.data_ptr(), state.data_ptr(),
-            *extra, Bb, S, H, P, G, N, chunk,
+            *extra, Bb, S, H, P, G, N, chunk, ssd_tile(chunk),
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -222,6 +246,24 @@ def ssd_scan_cuda_core(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor
 ssd_scan_cuda_core.launches = 0
 
 
+def chunk_a_cum(dt: torch.Tensor, A: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``a_cum`` (B, S, H) f32 as the kernels take it: within each chunk, a
+    sequential f32 sum of ``dt·A``, the product and each partial sum rounded
+    separately.  ``torch.cumsum`` sums in an order of its own (a parallel
+    scan on the card, double accumulation on the CPU); at chunk 256 an
+    ``a_cum`` of about -200 rounds in steps of 1.5e-5, which moves f32 y by
+    about 1e-3 where terms cancel, past the 2e-4 tolerance.  One add a row
+    of the chunk, over every chunk at once."""
+    Bb, S, H = dt.shape
+    dA = (dt.float() * A).reshape(Bb, S // chunk, chunk, H)
+    out = torch.empty_like(dA)
+    run = torch.zeros_like(dA[:, :, 0])
+    for i in range(chunk):
+        run = run + dA[:, :, i]
+        out[:, :, i] = run
+    return out.reshape(Bb, S, H)
+
+
 def ssd_scan_plain(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -233,7 +275,8 @@ def ssd_scan_plain(
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, on any device: the Pallas
-    kernel's loop over chunks, batched over (b, h), all in f32, with
+    kernel's loop over whole chunks, batched over (b, h), all in f32, with
+    ``a_cum`` summed as the kernels sum it (``chunk_a_cum``) and
     ``y + D·x`` rounded to x's dtype at the end."""
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -245,11 +288,12 @@ def ssd_scan_plain(
     ii = torch.arange(chunk, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[None, :, :, None]  # (1,Qi,Qj,1)
     state = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    a_all = chunk_a_cum(dtf, A, chunk)
     ys = []
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         xc, dtc, Bc, Cc = xf[:, sl], dtf[:, sl], Bh[:, sl], Ch[:, sl]
-        a_cum = torch.cumsum(dtc * A, dim=1)  # (B,Q,H)
+        a_cum = a_all[:, sl]  # (B,Q,H)
         a_tot = a_cum[:, -1]  # (B,H)
         # L[i, j] = exp(a_i - a_j) for i >= j; above the diagonal exp may be
         # inf, and the select (never a product with 0) keeps it out

@@ -1,14 +1,17 @@
-"""The train-step builder, single-device part: the port of
-``repro.launch.steps.make_train_step``.  The mesh context, the activation
-spec and the prefill/decode builders wait for the multi-GPU slice."""
+"""Step-function builders, single-device part: the port of
+``repro.launch.steps`` (``make_train_step``, ``make_prefill_step``,
+``make_decode_step``, ``make_encoder_step``, ``step_for_cell``).  Each
+builder closes over the config and returns a function of the model and
+tensors only.  The mesh context, the activation spec, ``auto_microbatches``
+and the builders' sharding ``rules`` wait for the multi-GPU slice."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.models import model as M
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.training.optimizer import OptSettings, adamw_update
 
 
@@ -63,3 +66,59 @@ def make_train_step(
         return loss, params, opt_state
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """``prefill_step(params, batch)`` -> (last-position logits f32 (B, V),
+    decode state), ``M.prefill`` without gradients."""
+
+    @torch.no_grad()
+    def prefill_step(params: M.DecoderLM, batch: Dict[str, torch.Tensor]):
+        return M.prefill(params, cfg, batch)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    """``serve_step(params, state, tokens, cache_pos)`` -> (logits f32
+    (B, V), new state), ``M.decode_step`` without gradients; the caches in
+    ``state`` are written in place."""
+
+    @torch.no_grad()
+    def serve_step(params: M.DecoderLM, state, tokens: torch.Tensor, cache_pos: int):
+        return M.decode_step(params, cfg, tokens, state, cache_pos)
+
+    return serve_step
+
+
+def make_encoder_step(cfg: ArchConfig):
+    """Encoder-only 'prefill': ``encode_step(params, batch)`` -> per-frame
+    logits f32 (B, S, V), the full forward without remat and no cache."""
+
+    @torch.no_grad()
+    def encode_step(params: M.DecoderLM, batch: Dict[str, torch.Tensor]):
+        hidden, _ = M.forward(params, cfg, batch, remat=False)
+        return M.lm_head(params, cfg, hidden)
+
+    return encode_step
+
+
+def step_for_cell(
+    cfg: ArchConfig,
+    shape: ShapeConfig,
+    settings: Optional[OptSettings] = None,
+    microbatches: int = 1,
+    remat_policy: str = "minimal",
+):
+    """(step_fn, takes_params_and_opt, microbatches) for one cell.
+    ``microbatches`` defaults to what the reference's ``auto_microbatches``
+    picks without sharding rules: 1."""
+    if shape.kind == "train":
+        settings = settings or OptSettings.auto(cfg.param_count())
+        step = make_train_step(cfg, settings, remat_policy=remat_policy, microbatches=microbatches)
+        return step, True, microbatches
+    if shape.kind == "prefill":
+        if cfg.is_encoder:
+            return make_encoder_step(cfg), False, 1
+        return make_prefill_step(cfg), False, 1
+    return make_decode_step(cfg), False, 1

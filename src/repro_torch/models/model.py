@@ -1,4 +1,4 @@
-"""Full model assembly, dense and SSM decoders: embeddings -> period stack
+"""Full model assembly, every family of the zoo: embeddings -> period stack
 -> head / decode state.  The PyTorch port of ``repro.models.model``.
 
 The reference keeps each period position's parameters under
@@ -12,7 +12,7 @@ reference's key paths: ``layers.{p}.pos{i}.mixer.wq`` is
 Entry points, as in the reference (``params`` is a ``DecoderLM``):
 
   init_params / param_shapes      parameter tree (real / meta tensors)
-  forward                         token embeddings -> final hidden
+  forward                         token/patch/frame embeddings -> final hidden
   train_loss                      chunked-vocab cross entropy (never
                                   materializes (B,S,V) for the full sequence)
   prefill                         forward + KV/SSM decode state
@@ -24,8 +24,10 @@ attention position, ``state`` (n_periods, B, H, P, N) and ``conv``
 (n_periods, B, K-1, conv_dim), both f32, for an SSM position.
 A period position's channel mixer is a dense MLP or an MoE block
 (``models/moe.py``, local path), as ``cfg.mlp_pattern`` says.  The
-patch/frame frontends are not ported yet (ROADMAP.md queue A); a config
-that needs them raises.
+frontends are the reference's stubs: a ``"patch"`` config (the VLM) writes
+precomputed patch embeddings over its first ``n_frontend_tokens`` token
+embeddings, a ``"frame"`` config (the audio encoder) takes precomputed
+frame embeddings as its input and has no ``embed`` leaf.
 """
 from __future__ import annotations
 
@@ -68,15 +70,6 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU explicitly"
         )
     return dev
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of the model zoo this port does not run yet."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP.md queue A, the rest of the zoo)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +124,6 @@ def init_params(
     else on ``device`` (the card by default) from a generator seeded 0; the
     meta device gives shapes without allocating.  Torch and JAX streams
     differ, so values never match the reference's."""
-    check_supported(cfg)
     if generator is not None:
         device = generator.device
     else:
@@ -139,7 +131,9 @@ def init_params(
         if device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
     dt = cfg.torch_dtype
-    params: Dict = {"embed": dense_init(generator, (cfg.vocab, cfg.d_model), dt, cfg.d_model, device)}
+    params: Dict = {}
+    if cfg.frontend != "frame":  # audio encoders take embeddings directly
+        params["embed"] = dense_init(generator, (cfg.vocab, cfg.d_model), dt, cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dt, cfg.d_model, device)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
@@ -169,7 +163,8 @@ class Block(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Decoder: ``embed``, ``layers`` (per period repetition, an
+    """The model of every family, the audio encoder included: ``embed``
+    (None for a frame config), ``layers`` (per period repetition, an
     ``nn.ModuleDict`` of ``pos{i}`` blocks), ``final_norm`` and ``head``.
     Built from a reference-layout tree whose leaves are checked against
     ``param_shapes(cfg)``.  Serving needs no gradients, so every parameter
@@ -178,10 +173,10 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, tree: Dict, trainable: bool = False):
         super().__init__()
-        _check_tree(tree, param_shapes(cfg))  # raises first for unported families
+        _check_tree(tree, param_shapes(cfg))
         self.cfg = cfg
         param = functools.partial(nn.Parameter, requires_grad=trainable)
-        self.embed = param(tree["embed"])
+        self.embed = param(tree["embed"]) if "embed" in tree else None
         if not cfg.tie_embeddings:
             self.head = param(tree["head"])
         self.final_norm = param(tree["final_norm"])
@@ -202,7 +197,7 @@ class DecoderLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
 
 
 def _take(tree: Dict, p: int) -> Dict:
@@ -228,8 +223,25 @@ def _check_tree(tree: Dict, spec: Dict, path: str = "") -> None:
 # Embeddings and the period body
 # ---------------------------------------------------------------------------
 def embed_inputs(params: DecoderLM, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
-    """(B, S, d) token embeddings (the text frontend)."""
-    return params.embed[batch["tokens"]]
+    """(B, S, d) initial hidden states from the modality frontend.
+
+    * text:   token embedding lookup
+    * vlm:    token embedding; the first ``n_frontend_tokens`` positions are
+              replaced by ``batch["patch_embeds"]`` (B, P, d) in the
+              embedding's dtype.  Out of place (``torch.cat``), so autograd
+              sees the replacement: the replaced positions give ``embed`` no
+              gradient, as in the reference's ``dynamic_update_slice``.
+    * audio:  ``batch["frame_embeds"]`` in the model dtype is the input
+    """
+    if cfg.frontend == "frame":
+        return batch["frame_embeds"].to(cfg.torch_dtype)
+    x = params.embed[batch["tokens"]]  # (B, S, d)
+    if cfg.frontend == "patch":
+        patches = batch["patch_embeds"].to(x.dtype)  # (B, P, d)
+        if patches.shape[1] > x.shape[1]:
+            raise ValueError(f"{patches.shape[1]} patch embeddings for {x.shape[1]} positions")
+        x = torch.cat([patches, x[:, patches.shape[1] :]], dim=1)
+    return x
 
 
 def _channel_mix(blk: Block, x: torch.Tensor, cfg: ArchConfig, kind: str) -> torch.Tensor:
@@ -448,7 +460,6 @@ def init_decode_state(
 ) -> Tuple[Dict, torch.Tensor]:
     """Empty decode state sized for a ``max_len`` context.  Every cache is
     a tensor of its own (K and V too): decode writes into them in place."""
-    check_supported(cfg)
     device = resolve_device(device)
     caches = {}
     for i, mixer in enumerate(cfg.period):

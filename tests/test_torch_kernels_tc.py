@@ -135,32 +135,39 @@ def test_flash_bf16_p_rounding_holds_against_pallas(jx, B, S, H, KV, hd, causal,
 # ---------------------------------------------------------------------------
 # SSD scan
 # ---------------------------------------------------------------------------
-def ssd_tc_emulation(x, dt, A, Bm, Cm, D, chunk, split=True):
-    """The tensor-core kernel's arithmetic: a sequential f32 a_cum, C Sᵀ, M x
-    and (w∘x)ᵀ B with M, S and w∘x each as bf16 hi + lo (``split``) or as
-    plain bf16 (``split=False``, the rounding the kernel does not use)."""
+def ssd_tc_emulation(x, dt, A, Bm, Cm, D, chunk, split=True, tile=None):
+    """The tensor-core kernel's arithmetic: a sequential f32 a_cum over each
+    chunk, C Sᵀ, M x and (w∘x)ᵀ B with M, S and w∘x each as bf16 hi + lo
+    (``split``) or as plain bf16 (``split=False``, the rounding the kernel
+    does not use).  ``tile`` < ``chunk`` runs each chunk as sub-tiles with
+    the chunk's a_cum and the state carried, as the kernel does."""
     parts = hi_lo if split else (lambda a: (bf16(a),))
+    tile = tile or chunk
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2:]
     y = np.zeros(x.shape, np.float32)
     st = np.zeros((Bb, H, P, N), np.float32)
-    tri = np.tri(chunk, dtype=bool)
+    tri = np.tri(tile, dtype=bool)
     for b in range(Bb):
         for h in range(H):
             g = h // (H // G)
             s = np.zeros((P, N), np.float32)
             for c0 in range(0, S, chunk):
-                sl = slice(c0, c0 + chunk)
-                xc, Bc, Cc, d = x[b, sl, h], Bm[b, sl, g], Cm[b, sl, g], dt[b, sl, h]
-                a = np.cumsum((d * A[h]).astype(np.float32)).astype(np.float32)
-                yc = sum(Cc @ part.T for part in parts(s)) * np.exp(a)[:, None]
-                L = np.where(tri, np.exp(np.where(tri, a[:, None] - a[None, :], 0)), 0)
-                M = ((Cc @ Bc.T) * L * d[None, :]).astype(np.float32)
-                yc = yc + sum(part @ xc for part in parts(M))
-                w = np.exp(a[-1] - a) * d
-                wx = (w[:, None] * xc).astype(np.float32)
-                s = s * np.exp(a[-1]) + sum(part.T @ Bc for part in parts(wx))
-                y[b, sl, h] = bf16(yc + xc * D[h])
+                a_chunk = np.cumsum((dt[b, c0 : c0 + chunk, h] * A[h]).astype(np.float32))
+                a_base = np.float32(0)
+                for t0 in range(0, chunk, tile):
+                    sl = slice(c0 + t0, c0 + t0 + tile)
+                    xc, Bc, Cc, d = x[b, sl, h], Bm[b, sl, g], Cm[b, sl, g], dt[b, sl, h]
+                    a = a_chunk[t0 : t0 + tile].astype(np.float32)
+                    yc = sum(Cc @ part.T for part in parts(s)) * np.exp(a - a_base)[:, None]
+                    L = np.where(tri, np.exp(np.where(tri, a[:, None] - a[None, :], 0)), 0)
+                    M = ((Cc @ Bc.T) * L * d[None, :]).astype(np.float32)
+                    yc = yc + sum(part @ xc for part in parts(M))
+                    w = np.exp(a[-1] - a) * d
+                    wx = (w[:, None] * xc).astype(np.float32)
+                    s = s * np.exp(a[-1] - a_base) + sum(part.T @ Bc for part in parts(wx))
+                    a_base = a[-1]
+                    y[b, sl, h] = bf16(yc + xc * D[h])
             st[b, h] = s
     return y, st
 
@@ -198,6 +205,23 @@ def test_ssd_hi_lo_operands_hold_against_pallas(jx, shape, record_property):
     worst = max(share(y, want_y), share(st, want_st))
     record_property("worst_share", worst)
     print(f"SSD hi+lo emulation vs Pallas at {shape}: worst share {worst:.4f}")
+    assert worst <= MAX_SHARE
+
+
+def test_ssd_hi_lo_sub_tiles_hold_against_pallas_at_chunk256(jx, record_property):
+    """jamba-1.5-large's chunk of 256 (P 64, N 128) as the kernel runs it:
+    sub-tiles of ``ssd_tile(256)`` = 128 rows with the chunk's a_cum and the
+    state carried, in the tensor-core kernel's roundings, against the Pallas
+    kernel at chunk 256."""
+    from repro_torch.kernels.ssd import ssd_tile
+
+    B, S, H, P, G, N, chunk = 1, 512, 8, 64, 1, 128, 256
+    args = _ssd_inputs(22, B, S, H, P, G, N)
+    want_y, want_st = _pallas_ssd(jx, args, chunk)
+    y, st = ssd_tc_emulation(*args, chunk, tile=ssd_tile(chunk))
+    worst = max(share(y, want_y), share(st, want_st))
+    record_property("worst_share", worst)
+    print(f"SSD hi+lo sub-tiles vs Pallas at chunk {chunk}: worst share {worst:.4f}")
     assert worst <= MAX_SHARE
 
 

@@ -110,13 +110,6 @@ def test_tree_with_wrong_shape_is_refused():
         params_from_reference(np_tree, tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "hubert-xlarge"])
-def test_unported_families_raise(arch):
-    cfg = tconfigs.reduce_for_smoke(tconfigs.get(arch))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.DecoderLM.from_config(cfg, device="cpu")
-
-
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default is taken, not refused")
