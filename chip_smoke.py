@@ -66,9 +66,17 @@ its check does not hold:
    time, data-wait, tokens/s, MFU and peak memory (``train`` line), every
    hand-kernel count 0 (the reference trains without its Pallas kernels),
    a profile of one step (``profile`` line) and its two halves timed apart
-   (``train_phases``: forward + backward, AdamW); the lm-100m example at its
-   defaults (300 f32 steps), whose loss must fall; and a checkpoint round
-   trip at lm-test size, bit for bit;
+   (``train_phases``: forward + backward, AdamW); then phi3.5-moe-42b-a6.6b
+   the same way: an f32 step at full width cut to 1 layer (B 1 x S 256) on
+   the card against the CPU, the routed indices of every router call
+   compared first, then 6 bf16 ``Trainer`` steps at full width cut to 3 of
+   32 layers; then phi3.5-moe's MoE block at full width (x of 4 x 1024)
+   sharded over two gloo ranks on the one card (``run_ranks``, 8 experts a
+   rank, the combine an ``all_reduce`` of CUDA tensors), f32 exactly equal
+   to the local block in this process and bf16 exactly equal to the bf16
+   sum of the two halves' bf16 partial sums (``moe_sharded`` line); the
+   lm-100m example at its defaults (300 f32 steps), whose loss must fall;
+   and a checkpoint round trip at lm-test size, bit for bit;
 7. one JSON line of the kernel variants, the nvidia-smi line, and the result
    line.
 
@@ -977,6 +985,14 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 6
 # the f32 check: 2 layers (the only cut), B=1, S=1100 — 2 KV chunks of 1024
 # with padding, and a CE loss over 2 chunks of 512 that drops 76 tokens
 CHECK_TRAIN_LAYERS, CHECK_TRAIN_S = 2, 1100
+# phi3.5-moe: the f32 check at full width and 1 layer (1.56 B parameters,
+# about 25 GB of weights, gradients and moments on each side), B 1 x S 256;
+# the main path cut from 32 to 3 layers (4.16 B parameters: bf16 weights and
+# gradients with f32 moments are 50 GB; 4 layers would be 66 GB before
+# activations and the optimizer's temporaries)
+MOE_TRAIN_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_CHECK_LAYERS, MOE_CHECK_S = 1, 256
+MOE_TRAIN_LAYERS = 3
 
 
 def train_batch(vocab: int, B: int, S: int, seed: int, device) -> dict:
@@ -985,11 +1001,51 @@ def train_batch(vocab: int, B: int, S: int, seed: int, device) -> dict:
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def train_f32_check(configs, kernels) -> dict:
-    """One f32 training step at full width (2 layers) on the card against
-    the same step on the CPU, the path tier-1 holds against JAX: the step
-    ``make_train_step`` runs, taken in its two halves (``loss_and_grads``,
-    then ``adamw_update``) so the gradients can be read between them.
+def host_memory_gb() -> dict:
+    """The host's RAM and this process's peak resident set, in GB."""
+    import resource
+
+    with open("/proc/meminfo") as f:
+        info = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    return dict(host_ram_gb=info["MemTotal"] / 1e9, host_available_gb=info["MemAvailable"] / 1e9,
+                host_peak_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9)
+
+
+class RoutingRecorder:
+    """Wraps ``moe.router_probs`` while in use: every call's routed indices
+    (on the host) and its smallest top-k margin, the k-th largest router
+    probability less the (k+1)-th, across the tokens."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        orig, moe = self.moe.router_probs, self.moe
+
+        def recording(x_flat, router_w, top_k):
+            idx, w = orig(x_flat, router_w, top_k)
+            with torch.no_grad():
+                top = torch.topk(torch.softmax(moe._dot_f32(x_flat, router_w), -1), top_k + 1).values
+                self.calls.append((idx.detach().cpu(), (top[:, top_k - 1] - top[:, top_k]).min().item()))
+            return idx, w
+
+        self.orig, self.moe.router_probs = orig, recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_probs = self.orig
+
+
+def train_f32_check(configs, kernels, arch: str = TRAIN_ARCH, layers: int = CHECK_TRAIN_LAYERS,
+                    seq: int = CHECK_TRAIN_S) -> dict:
+    """One f32 training step at full width (cut to ``layers``) on the card
+    against the same step on the CPU, the path tier-1 holds against JAX: the
+    step ``make_train_step`` runs, taken in its two halves
+    (``loss_and_grads``, then ``adamw_update``) so the gradients can be read
+    between them.  For an MoE model the routed indices of every router call
+    (forward and recompute) are compared first: a near-tie that routes a
+    token apart on the two sides fails the run, with the smallest top-k
+    margin printed.
 
     Held at 2e-3: the loss, the global grad norm, every gradient leaf (to
     2e-3 of the leaf's largest magnitude, plus 2e-3 relative), every
@@ -1001,24 +1057,27 @@ def train_f32_check(configs, kernels) -> dict:
     the share of elements where the two updates differ past the allowance is
     printed instead."""
     from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import moe
     from repro_torch.models.model import DecoderLM
     from repro_torch.training.optimizer import OptSettings, _global_norm, adamw_init, adamw_update
     from repro_torch.weights import params_from_reference, params_to_numpy
 
-    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=CHECK_TRAIN_LAYERS, dtype="float32")
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers, dtype="float32")
     settings = OptSettings.auto(cfg.param_count())
     lr = settings.lr
     gpu = DecoderLM.from_config(cfg, seed=0, device="cuda", trainable=True)
     init = params_to_numpy(gpu)
     cpu = params_from_reference(init, cfg, "cpu", trainable=True)
-    out, grads, deltas = {}, {}, {}
+    out, grads, deltas, routed = {}, {}, {}, {}
     zero_counts(kernels)
     for name, model in (("cuda", gpu), ("cpu", cpu)):
-        batch = train_batch(cfg.vocab, 1, CHECK_TRAIN_S, 5, name)
+        batch = train_batch(cfg.vocab, 1, seq, 5, name)
         opt = adamw_init(model, settings)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         t0 = time.monotonic()
-        loss, g = loss_and_grads(model, cfg, batch)
+        with RoutingRecorder(moe) as rec:
+            loss, g = loss_and_grads(model, cfg, batch)
+        routed[name] = rec.calls
         gnorm = _global_norm(g.values())
         adamw_update(model, g, opt, settings)
         out[name] = (loss.item(), gnorm.item(), time.monotonic() - t0)
@@ -1027,8 +1086,20 @@ def train_f32_check(configs, kernels) -> dict:
         del opt, before, g
     counts = read_counts(kernels)
     check(not any(counts.values()), f"the f32 training check launched hand kernels: {counts}")
+    row = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=1, seq=seq)
+    if "moe" in cfg.mlp_pattern:
+        n = len(routed["cuda"])
+        check(n > 0 and n == len(routed["cpu"]), f"router calls: {n} on the card, {len(routed['cpu'])} on the CPU")
+        flips = sum(int((a != b).any(dim=-1).sum()) for (a, _), (b, _) in zip(routed["cuda"], routed["cpu"]))
+        row.update(router_calls=n, routed_equal=flips == 0, tokens_routed_apart=flips,
+                   smallest_topk_margin=min(m for _, m in routed["cuda"] + routed["cpu"]))
+        if flips:
+            print("train_check " + json.dumps(row), flush=True)
+            fail(f"f32 train step: {flips} tokens routed apart on the card and the CPU "
+                 f"(smallest top-k margin {row['smallest_topk_margin']})")
     # the CPU's update on the card's gradients, from the same weights
     ref = params_from_reference(init, cfg, "cpu", trainable=True)
+    del init
     before = {n: p.detach().clone() for n, p in ref.named_parameters()}
     adamw_update(ref, grads["cuda"], adamw_init(ref, settings), settings)
     ref_delta = {n: p.detach() - before[n] for n, p in ref.named_parameters()}
@@ -1056,34 +1127,39 @@ def train_f32_check(configs, kernels) -> dict:
         check(abs(a - b) <= MODEL_TOL * (1 + abs(b)), f"f32 train step: {what} {a} on the card, {b} on the CPU")
     check(all(np.isfinite([l_g, n_g])), "f32 train step: loss or grad norm not finite")
     n_elems = sum(p.numel() for p in cpu.parameters())
-    row = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=1, seq=CHECK_TRAIN_S,
-               loss_card=l_g, loss_cpu=l_c, grad_norm_card=n_g, grad_norm_cpu=n_c,
+    row.update(loss_card=l_g, loss_cpu=l_c, grad_norm_card=n_g, grad_norm_cpu=n_c,
                params_worst_tol_share=worst["params"], grads_worst_tol_share=worst["grads"],
                update_worst_tol_share=worst["update"],
                update_vs_cpu_update_outside_share=outside / n_elems,
-               step_s_card=s_g, step_s_cpu=s_c)
+               step_s_card=s_g, step_s_cpu=s_c, params=n_elems, **host_memory_gb())
     print("train_check " + json.dumps(row), flush=True)
     del gpu, cpu, ref, grads, deltas, ref_delta
     torch.cuda.empty_cache()
     return row
 
 
-def train_main_path(configs, kernels, card: str) -> dict:
-    """The main path: the full model, bf16, ``Trainer`` on the port's DELI
-    pipeline, counts read around it; then a profile of one step."""
+def train_main_path(configs, kernels, card: str, arch: str = TRAIN_ARCH,
+                    layers: Optional[int] = None) -> dict:
+    """The main path: the model at full width (cut to ``layers``), bf16,
+    ``Trainer`` on the port's DELI pipeline, counts read around it; then a
+    profile of one step."""
     from repro_torch.core import PrefetchConfig
     from repro_torch.data import decode_tokens, make_lm_pipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.training.loop import Trainer, TrainerConfig
 
-    cfg = configs.get(TRAIN_ARCH)
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     loader, service, _ = make_lm_pipeline(
         n_samples=1024, seq_len=TRAIN_S, vocab=cfg.vocab, batch_size=TRAIN_B, cache_items=256,
         policy=PrefetchConfig.fifty_fifty(256),
     )
+    t0 = time.monotonic()
     trainer = Trainer(cfg, loader, TrainerConfig(seq_len=TRAIN_S, batch_size=TRAIN_B, log_every=1000),
                       decode_fn=decode_tokens)  # the card, by default; no checkpoint dir
     torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
     with service:
@@ -1101,7 +1177,8 @@ def train_main_path(configs, kernels, card: str) -> dict:
     wait = sum(m.data_wait_s for m in metrics)
     comp = sum(m.compute_s for m in metrics)
     row = dict(
-        arch=cfg.name, dtype=cfg.dtype, params=n_active, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+        arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, params=n_active,
+        params_total=cfg.param_count(), init_s=init_s, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
         moment_dtype=trainer.settings.moment_dtype, remat_policy="minimal",
         loss=losses, compute_s=[m.compute_s for m in metrics],
         data_wait_s=[m.data_wait_s for m in metrics], wait_fraction=wait / (wait + comp),
@@ -1109,6 +1186,9 @@ def train_main_path(configs, kernels, card: str) -> dict:
         median_step_s=step_s, tokens_per_s=tokens / step_s,
         # the reference's model_flops (6·N_active·tokens) against the bf16 peak
         mfu=6.0 * n_active * tokens / step_s / PEAK_FLOPS[torch.bfloat16],
+        # the same without the embedding table, a gather that does no FLOPs
+        mfu_without_embed=6.0 * (n_active - cfg.vocab * cfg.d_model) * tokens / step_s
+        / PEAK_FLOPS[torch.bfloat16],
         card=card, peak_mem_gb=peak_gb, launches=counts,
     )
     print("train " + json.dumps(row), flush=True)
@@ -1143,6 +1223,122 @@ def train_phases(cfg, trainer, batch) -> dict:
     phases = dict(loss_and_grads_s=t1 - t0, adamw_update_s=t2 - t1)
     print("train_phases " + json.dumps(dict(arch=cfg.name, **phases)), flush=True)
     return phases
+
+
+# ---------------------------------------------------------------------------
+# The sharded MoE block: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+SHARDED_ARCH = "phi3.5-moe-42b-a6.6b"
+SHARDED_B, SHARDED_S, SHARDED_RANKS = 4, 1024, 2
+
+
+def sharded_inputs(cfg, dtype, experts: range) -> tuple:
+    """The block's router, the given experts' leaves and x (B, S, d), drawn
+    on the card in f32 from seeds (each expert from its own, so a rank draws
+    only its experts) and cast to ``dtype``."""
+    d, f = cfg.d_model, cfg.d_ff
+    g = torch.Generator(device="cuda").manual_seed(11)
+    router = torch.randn(d, cfg.n_experts, generator=g, device="cuda") / d ** 0.5
+    x = torch.randn(SHARDED_B, SHARDED_S, d, generator=g, device="cuda")
+    leaves = {"w_gate": [], "w_up": [], "w_down": []}
+    for e in experts:
+        g = torch.Generator(device="cuda").manual_seed(1000 + e)
+        for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d))):
+            leaves[name].append((torch.randn(*shape, generator=g, device="cuda") / shape[0] ** 0.5).to(dtype))
+    params = {"router": router.to(dtype), **{k: torch.stack(v) for k, v in leaves.items()}}
+    return params, x.to(dtype)
+
+
+def wall_ms(fn) -> tuple:
+    """(result, host ms) of one call after a warm-up call, synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.monotonic() - t0) * 1e3
+
+
+def moe_sharded_rank(rank: int, world: int) -> dict:
+    """One rank of the sharded block: a (data 1, model ``world``) mesh on
+    the card over a gloo group, this rank's experts, every rank the whole
+    batch; y in f32 and bf16 and the wall ms of each."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.moe import MeshContext, moe_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get(SHARDED_ARCH)
+    ctx = MeshContext(make_smoke_mesh(1, world, device_type="cuda"), batch_axes=("data",))
+    n_local = cfg.n_experts // world
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params, x = sharded_inputs(cfg, dtype, range(rank * n_local, (rank + 1) * n_local))
+        with torch.no_grad():
+            y, ms = wall_ms(lambda: moe_block(params, x, cfg, ctx))
+        out[f"{dtype}|y"] = y.float().cpu().numpy()
+        out[f"{dtype}|ms"] = np.array(ms)
+        del params, x, y
+    return out
+
+
+def moe_sharded_check(configs, kernels) -> dict:
+    """phi3.5-moe's MoE block at full width (d 4096, d_ff 6400, 16 experts,
+    top-2), x of 4 x 1024, through ``run_ranks``: two gloo ranks on the one
+    card, 8 experts each, the combine an ``all_reduce`` of CUDA tensors.
+    Held against the same block run here in one process: f32 exactly equal
+    to the local path (a data axis of 1: every token's two expert terms sum
+    the same way), bf16 exactly equal to bf16(bf16(p0) + bf16(p1)) of the
+    two halves' partial sums, the reference's combine rule.  The wall ms
+    are of two processes sharing one card, so not a speed."""
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.models.moe import _capacity, _moe_local, moe_block
+
+    cfg = configs.get(SHARDED_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = run_ranks(moe_sharded_rank, SHARDED_RANKS, device="cuda", timeout_s=600)
+    ranks_s = time.monotonic() - t0
+    n_local = cfg.n_experts // SHARDED_RANKS
+    row = dict(arch=SHARDED_ARCH, ranks=SHARDED_RANKS, mesh="data 1 x model 2", backend="gloo",
+               combine="all_reduce of CUDA tensors", batch=SHARDED_B, seq=SHARDED_S,
+               experts_per_rank=n_local, run_ranks_s=ranks_s)
+    zero_counts(kernels)
+    for dtype in (torch.float32, torch.bfloat16):
+        params, x = sharded_inputs(cfg, dtype, range(cfg.n_experts))
+        with torch.no_grad():
+            if dtype == torch.float32:
+                want, local_ms = wall_ms(lambda: moe_block(params, x, cfg))
+            else:
+                flat = x.reshape(-1, cfg.d_model)
+                cap = _capacity(flat.shape[0], cfg, None)
+
+                def halves():
+                    parts = [_moe_local({k: v if k == "router" else v[e0:e0 + n_local] for k, v in params.items()},
+                                        flat, cfg, cap, n_local, e0).to(dtype)
+                             for e0 in range(0, cfg.n_experts, n_local)]
+                    return (parts[0] + parts[1]).reshape(x.shape)
+
+                want, local_ms = wall_ms(halves)
+        want = want.float().cpu().numpy()
+        name = str(dtype).replace("torch.", "")
+        errs = []
+        for r, res in enumerate(ranks):
+            got = res[f"{dtype}|y"]
+            check(np.isfinite(got).all() and got.shape == want.shape, f"moe_sharded {name}: rank {r} {got.shape}")
+            errs.append(float(np.abs(got - want).max()))
+            check(np.array_equal(got, want), f"moe_sharded {name}: rank {r} differs from the local block "
+                                             f"by {errs[-1]} (max abs)")
+        row[name] = dict(equal=True, max_abs_err=max(errs), local_ms=local_ms,
+                         rank_ms=[float(res[f"{dtype}|ms"]) for res in ranks],
+                         rank_ms_note="two processes sharing one card: not a speed")
+        del params, x
+    counts = read_counts(kernels)
+    check(not any(counts.values()), f"the sharded MoE block check launched hand kernels: {counts}")
+    row["launches"] = counts
+    print("moe_sharded " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return row
 
 
 def train_e2e_example(tmp: str) -> dict:
@@ -1285,6 +1481,9 @@ def main() -> None:
 
     train_f32_check(configs, kernels)
     train_main_path(configs, kernels, card)
+    train_f32_check(configs, kernels, MOE_TRAIN_ARCH, MOE_CHECK_LAYERS, MOE_CHECK_S)
+    train_main_path(configs, kernels, card, MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)
+    moe_sharded_check(configs, kernels)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_e2e_example(tmp)
         checkpoint_round_trip(tmp)

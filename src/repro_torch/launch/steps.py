@@ -1,18 +1,94 @@
-"""Step-function builders, single-device part: the port of
-``repro.launch.steps`` (``make_train_step``, ``make_prefill_step``,
-``make_decode_step``, ``make_encoder_step``, ``step_for_cell``).  Each
-builder closes over the config and returns a function of the model and
-tensors only.  The mesh context, the activation spec, ``auto_microbatches``
-and the builders' sharding ``rules`` wait for the multi-GPU slice."""
+"""Step-function builders: the port of ``repro.launch.steps``
+(``make_train_step``, ``make_prefill_step``, ``make_decode_step``,
+``make_encoder_step``, ``step_for_cell``, the mesh context, the activation
+spec and ``auto_microbatches``).  Each builder closes over the config (and
+the sharding rules) and returns a function of the model and tensors only.
+
+With ``rules`` (over a ``DeviceMesh`` of the current process group) the
+serving steps run SPMD, one process a rank.  Each takes the global batch
+and keeps the slice ``input_shardings`` gives its mesh coordinate (every
+rank the whole batch where it divides no data axis, as
+``make_mesh_context`` says); ``params`` is a ``ShardedLM``, which gathers
+each period's parameters on use and leaves the MoE experts split over
+``model``; the decode state follows ``state_shardings``
+(``sharding.shard_state``).  The steps return this rank's slice of their
+outputs.  Only the MoE experts split work over ``model``: the other layers
+run on gathered weights, the same on every rank of a model group.
+Sharded training is ROADMAP.md queue A's next item.
+"""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import (
+    P,
+    ShardingRules,
+    _greedy_batch_axes,
+    from_local,
+    input_shardings,
+    local_part,
+    shard_state,
+)
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig, ShapeConfig
+from repro_torch.models.moe import MeshContext
 from repro_torch.training.optimizer import OptSettings, adamw_update
+
+
+def _fitting_batch_axes(rules: ShardingRules, global_batch: int) -> tuple:
+    return tuple(_greedy_batch_axes(rules, global_batch)[0])
+
+
+def make_mesh_context(
+    rules: Optional[ShardingRules], cfg: ArchConfig, global_batch: int
+) -> Optional[MeshContext]:
+    """MeshContext for the sharded MoE path: only the fsdp axes that evenly
+    divide the batch are used as batch axes (batch=1 long-context decode
+    runs with a fully replicated token set inside the MoE)."""
+    if rules is None or "moe" not in cfg.mlp_pattern:
+        return None
+    axes = _fitting_batch_axes(rules, global_batch)
+    return MeshContext(rules.mesh, batch_axes=axes, model_axis=rules.model_axis)
+
+
+def act_partition_spec(rules: Optional[ShardingRules], global_batch: int) -> Optional[tuple]:
+    """Activation spec (B, S, d): batch over the fitting fsdp axes."""
+    if rules is None:
+        return None
+    axes = _fitting_batch_axes(rules, global_batch)
+    return P(axes or None, None, None)
+
+
+def auto_microbatches(
+    cfg: ArchConfig, shape: ShapeConfig, rules: Optional[ShardingRules],
+    act_budget_bytes: float = 3e9,
+) -> int:
+    """Gradient-accumulation factor so the per-device remat-saved activation
+    carries (n_layers x microbatch_local x S x d x 2B) fit the budget (the
+    reference's 3e9 bytes, so the two pick the same factor)."""
+    if rules is None:
+        return 1
+    dp = 1
+    for a in _fitting_batch_axes(rules, shape.global_batch):
+        dp *= rules.axis_size(a)
+    local_b = shape.global_batch // dp
+    per_layer = shape.seq_len * cfg.d_model * 2  # bf16 carry per sample
+    n = 1
+    while (
+        n < local_b
+        and local_b % (2 * n) == 0
+        and cfg.n_layers * (local_b // n) * per_layer > act_budget_bytes
+    ):
+        n *= 2
+    return n
+
+
+def _local_batch(rules: ShardingRules, cfg: ArchConfig, batch: Dict) -> Dict:
+    """This rank's slice of a global batch dict."""
+    specs = input_shardings(rules, cfg, batch)
+    return {k: local_part(v, specs[k], rules.mesh) for k, v in batch.items()}
 
 
 def loss_and_grads(
@@ -50,13 +126,22 @@ def loss_and_grads(
 def make_train_step(
     cfg: ArchConfig,
     settings: OptSettings,
+    rules: Optional[ShardingRules] = None,
+    global_batch: int = 0,
     remat_policy: str = "minimal",
     microbatches: int = 1,
 ):
     """fwd+bwd+AdamW: ``loss_and_grads`` then ``adamw_update``.  The step
     updates the model and the optimizer state in place and returns
     ``(loss, params, opt_state)``, loss a 0-dim f32 tensor on the model's
-    device."""
+    device.  One process only: rules over a mesh of more than one rank
+    raise."""
+    if rules is not None and rules.fsdp_size * rules.model_size > 1:
+        raise NotImplementedError(
+            "make_train_step over a mesh of more than one rank: sharded training (the "
+            "gradients of gathered leaves reduced back to their shards) is ROADMAP.md "
+            "queue A's next item"
+        )
 
     def train_step(params: M.DecoderLM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
         loss, grads = loss_and_grads(params, cfg, batch, remat_policy, microbatches)
@@ -68,36 +153,60 @@ def make_train_step(
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(
+    cfg: ArchConfig, rules: Optional[ShardingRules] = None, global_batch: int = 0
+):
     """``prefill_step(params, batch)`` -> (last-position logits f32 (B, V),
-    decode state), ``M.prefill`` without gradients."""
+    decode state), ``M.prefill`` without gradients.  With ``rules``: this
+    rank's rows of the logits, and the state laid out by
+    ``state_shardings``."""
+    ctx = make_mesh_context(rules, cfg, global_batch)
 
     @torch.no_grad()
     def prefill_step(params: M.DecoderLM, batch: Dict[str, torch.Tensor]):
-        return M.prefill(params, cfg, batch)
+        if rules is None:
+            return M.prefill(params, cfg, batch)
+        logits, state = M.prefill(params, cfg, _local_batch(rules, cfg, batch), ctx)
+        return logits, shard_state(rules, cfg, state, global_batch)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(
+    cfg: ArchConfig, rules: Optional[ShardingRules] = None, global_batch: int = 0
+):
     """``serve_step(params, state, tokens, cache_pos)`` -> (logits f32
     (B, V), new state), ``M.decode_step`` without gradients; the caches in
-    ``state`` are written in place."""
+    ``state`` are written in place.  With ``rules``: ``tokens`` is the
+    global (B, 1), and the logits are this rank's rows."""
+    ctx = make_mesh_context(rules, cfg, global_batch)
 
     @torch.no_grad()
     def serve_step(params: M.DecoderLM, state, tokens: torch.Tensor, cache_pos: int):
-        return M.decode_step(params, cfg, tokens, state, cache_pos)
+        if rules is None:
+            return M.decode_step(params, cfg, tokens, state, cache_pos)
+        caches, kv_len = state
+        logits, (caches, new_len) = M.decode_step(
+            params, cfg, _local_batch(rules, cfg, {"tokens": tokens})["tokens"],
+            (caches, kv_len.to_local()), cache_pos, ctx)
+        return logits, (caches, from_local(new_len, rules.mesh, kv_len.placements, kv_len.shape))
 
     return serve_step
 
 
-def make_encoder_step(cfg: ArchConfig):
+def make_encoder_step(
+    cfg: ArchConfig, rules: Optional[ShardingRules] = None, global_batch: int = 0
+):
     """Encoder-only 'prefill': ``encode_step(params, batch)`` -> per-frame
-    logits f32 (B, S, V), the full forward without remat and no cache."""
+    logits f32 (B, S, V), the full forward without remat and no cache
+    (with ``rules``, this rank's rows)."""
+    ctx = make_mesh_context(rules, cfg, global_batch)
 
     @torch.no_grad()
     def encode_step(params: M.DecoderLM, batch: Dict[str, torch.Tensor]):
-        hidden, _ = M.forward(params, cfg, batch, remat=False)
+        if rules is not None:
+            batch = _local_batch(rules, cfg, batch)
+        hidden, _ = M.forward(params, cfg, batch, ctx, remat=False)
         return M.lm_head(params, cfg, hidden)
 
     return encode_step
@@ -106,19 +215,23 @@ def make_encoder_step(cfg: ArchConfig):
 def step_for_cell(
     cfg: ArchConfig,
     shape: ShapeConfig,
+    rules: Optional[ShardingRules] = None,
     settings: Optional[OptSettings] = None,
-    microbatches: int = 1,
+    microbatches: Optional[int] = None,
     remat_policy: str = "minimal",
 ):
-    """(step_fn, takes_params_and_opt, microbatches) for one cell.
-    ``microbatches`` defaults to what the reference's ``auto_microbatches``
-    picks without sharding rules: 1."""
+    """(step_fn, takes_params_and_opt, microbatches) for one cell;
+    ``microbatches`` defaults to ``auto_microbatches``."""
+    B = shape.global_batch
     if shape.kind == "train":
         settings = settings or OptSettings.auto(cfg.param_count())
-        step = make_train_step(cfg, settings, remat_policy=remat_policy, microbatches=microbatches)
+        if microbatches is None:
+            microbatches = auto_microbatches(cfg, shape, rules)
+        step = make_train_step(cfg, settings, rules, B, remat_policy=remat_policy,
+                               microbatches=microbatches)
         return step, True, microbatches
     if shape.kind == "prefill":
         if cfg.is_encoder:
-            return make_encoder_step(cfg), False, 1
-        return make_prefill_step(cfg), False, 1
-    return make_decode_step(cfg), False, 1
+            return make_encoder_step(cfg, rules, B), False, 1
+        return make_prefill_step(cfg, rules, B), False, 1
+    return make_decode_step(cfg, rules, B), False, 1

@@ -23,7 +23,10 @@ The decode caches keep the reference layout at this boundary: per
 attention position, ``state`` (n_periods, B, H, P, N) and ``conv``
 (n_periods, B, K-1, conv_dim), both f32, for an SSM position.
 A period position's channel mixer is a dense MLP or an MoE block
-(``models/moe.py``, local path), as ``cfg.mlp_pattern`` says.  The
+(``models/moe.py``), as ``cfg.mlp_pattern`` says.  ``ctx`` (a
+``moe.MeshContext``, None for one process) reaches ``moe_block`` as in the
+reference; under it ``params`` may be a ``distributed.sharding.ShardedLM``,
+which gathers each period's parameters on use.  The
 frontends are the reference's stubs: a ``"patch"`` config (the VLM) writes
 precomputed patch embeddings over its first ``n_frontend_tokens`` token
 embeddings, a ``"frame"`` config (the audio encoder) takes precomputed
@@ -50,7 +53,7 @@ from repro_torch.models.layers import (
     mlp_param_shapes,
     rms_norm,
 )
-from repro_torch.models.moe import moe_block, moe_param_shapes
+from repro_torch.models.moe import MeshContext, moe_block, moe_param_shapes
 from repro_torch.models.ssm import (
     ssm_block,
     ssm_block_decode,
@@ -199,6 +202,12 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    def cache_periods(self, caches: Dict):
+        """Each period's slice of the stacked decode caches: views, so the
+        decode step's in-place writes land in ``caches``."""
+        for p in range(len(self.layers)):
+            yield {pos: {name: t[p] for name, t in sub.items()} for pos, sub in caches.items()}
+
 
 def _take(tree: Dict, p: int) -> Dict:
     """Period ``p``'s slice of a stacked subtree (views, no copy)."""
@@ -244,10 +253,12 @@ def embed_inputs(params: DecoderLM, cfg: ArchConfig, batch: Dict) -> torch.Tenso
     return x
 
 
-def _channel_mix(blk: Block, x: torch.Tensor, cfg: ArchConfig, kind: str) -> torch.Tensor:
+def _channel_mix(
+    blk: Block, x: torch.Tensor, cfg: ArchConfig, kind: str, ctx: Optional[MeshContext]
+) -> torch.Tensor:
     h = rms_norm(x, blk.norm2, cfg.norm_eps)
     if kind == "moe":
-        return x + moe_block(blk.mlp, h, cfg)
+        return x + moe_block(blk.mlp, h, cfg, ctx)
     return x + mlp_block(blk.mlp, h, cfg)
 
 
@@ -255,6 +266,7 @@ def _period_forward(
     period: nn.ModuleDict,
     x: torch.Tensor,
     cfg: ArchConfig,
+    ctx: Optional[MeshContext],
     positions: torch.Tensor,
     collect_cache: bool,
     inner_remat: bool = False,
@@ -287,7 +299,7 @@ def _period_forward(
             caches[f"pos{i}"] = carry
         x = x + y
         if mlp != "none":
-            x = ck(_channel_mix, blk, x, cfg, mlp)
+            x = ck(_channel_mix, blk, x, cfg, mlp, ctx)
     return x, caches
 
 
@@ -296,6 +308,7 @@ def _period_decode(
     cslice: Dict,
     x: torch.Tensor,
     cfg: ArchConfig,
+    ctx: Optional[MeshContext],
     cache_pos: int,
     kv_len: torch.Tensor,
 ) -> torch.Tensor:
@@ -319,7 +332,7 @@ def _period_decode(
             c["conv"].copy_(conv)
         x = x + y
         if mlp != "none":
-            x = _channel_mix(blk, x, cfg, mlp)
+            x = _channel_mix(blk, x, cfg, mlp, ctx)
     return x
 
 
@@ -342,6 +355,7 @@ def forward(
     params: DecoderLM,
     cfg: ArchConfig,
     batch: Dict,
+    ctx: Optional[MeshContext] = None,
     *,
     remat: bool = True,
     collect_cache: bool = False,
@@ -366,7 +380,7 @@ def forward(
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
     per_period = []
     for period in params.layers:
-        args = (period, x, cfg, positions, collect_cache, inner)
+        args = (period, x, cfg, ctx, positions, collect_cache, inner)
         x, caches = checkpointed(_period_forward, *args, **kw) if remat else _period_forward(*args)
         per_period.append(caches)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -427,6 +441,7 @@ def train_loss(
     cfg: ArchConfig,
     batch: Dict,
     remat_policy: Optional[str] = "minimal",
+    ctx: Optional[MeshContext] = None,
 ) -> torch.Tensor:
     """The training loss: ``forward`` with remat, then ``chunked_ce_loss``.
 
@@ -436,19 +451,19 @@ def train_loss(
     ``cfg.use_kernels`` says.
     """
     cfg = dataclasses.replace(cfg, use_kernels=False)
-    hidden, _ = forward(params, cfg, batch, remat=True, remat_policy=remat_policy)
+    hidden, _ = forward(params, cfg, batch, ctx, remat=True, remat_policy=remat_policy)
     return chunked_ce_loss(params, cfg, hidden, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
 # Serving: prefill + one-token decode
 # ---------------------------------------------------------------------------
-def prefill(params: DecoderLM, cfg: ArchConfig, batch: Dict):
+def prefill(params: DecoderLM, cfg: ArchConfig, batch: Dict, ctx: Optional[MeshContext] = None):
     """Process the prompt; returns (last-position logits f32 (B, V), state).
 
     state = (caches stacked over periods, kv_len (B,) int32).
     """
-    hidden, caches = forward(params, cfg, batch, remat=False, collect_cache=True)
+    hidden, caches = forward(params, cfg, batch, ctx, remat=False, collect_cache=True)
     logits = lm_head(params, cfg, hidden[:, -1:])[:, 0]
     B, S = hidden.shape[0], hidden.shape[1]
     kv_len = torch.full((B,), S, dtype=torch.int32, device=hidden.device)
@@ -485,6 +500,7 @@ def decode_step(
     tokens: torch.Tensor,  # (B, 1) integer ids
     state: Tuple[Dict, torch.Tensor],
     cache_pos: int,  # slot the new token occupies
+    ctx: Optional[MeshContext] = None,
 ):
     """One serving step: consume one token, emit next-token logits.
 
@@ -495,9 +511,10 @@ def decode_step(
     cache_pos = int(cache_pos)
     x = params.embed[tokens]  # (B, 1, d)
     new_kv_len = torch.clamp_min(kv_len, cache_pos + 1)
-    for p, period in enumerate(params.layers):
-        cslice = {pos: {name: t[p] for name, t in sub.items()} for pos, sub in caches.items()}
-        x = _period_decode(period, cslice, x, cfg, cache_pos, new_kv_len)
+    # cache_periods goes first: zip asks it once more at the end, which lets a
+    # ShardedLM's take the last period's writes back before it stops
+    for cslice, period in zip(params.cache_periods(caches), params.layers):
+        x = _period_decode(period, cslice, x, cfg, ctx, cache_pos, new_kv_len)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = lm_head(params, cfg, x)[:, 0]
     return logits, (caches, new_kv_len)

@@ -14,18 +14,88 @@ dtype, the three products accumulate in f32 (``_dot_f32``), ``h`` is cast
 back to the model dtype before ``w_down``, the experts are summed in f32 in
 id order, and the sum is cast to the model dtype once, at the end.
 
-The sharded path (experts split over the ``model`` mesh axis, one
-``psum``) waits for the multi-GPU slice (ROADMAP.md queue A).
+Distribution, as the reference's: the experts are split over the ``model``
+mesh axis.  The block's input is already replicated across ``model`` (every
+rank of a model group holds the same batch slice), so dispatch needs no
+all-to-all: each rank routes its tokens with the full router, computes the
+tokens of *its* experts, and one ``all_reduce`` over the model group, in
+the model dtype, combines them.  Both paths share ``_moe_local``: the
+sharded one runs it over the rank's experts only, with the capacity of the
+rank's own tokens.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dot_f32
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """How model code sees the device mesh (None => single-process local):
+    the ``DeviceMesh``, the axes the batch is split over, and the model
+    axis, whose process group the sharded ``moe_block`` combines over."""
+
+    mesh: object  # torch.distributed.device_mesh.DeviceMesh
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+
+    @property
+    def model_size(self) -> int:
+        return mesh_sizes(self.mesh)[self.model_axis]
+
+    @property
+    def model_group(self):
+        return self.mesh.get_group(self.model_axis)
+
+    @property
+    def model_rank(self) -> int:
+        return self.mesh.get_local_rank(self.model_axis)
+
+
+class _ToModelRegion(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over the model
+    group.  An input every rank of the group holds (the tokens, the
+    router) reaches each rank's experts, so its gradient is the sum of the
+    ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _FromModelRegion(torch.autograd.Function):
+    """The combine: ``all_reduce`` (sum) over the model group forward; the
+    identity backward, since every rank goes on with the same replicated
+    sum.  (``torch.distributed.nn.functional.all_reduce`` would sum the
+    cotangents again, scaling every expert's gradient by the model size.)"""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 def router_probs(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -85,19 +155,24 @@ def _capacity(n_tokens: int, cfg: ArchConfig, capacity_factor: Optional[float]) 
     return max(1, int(n_tokens * cfg.top_k / cfg.n_experts * f))
 
 
-def _moe_local(params, x_flat: torch.Tensor, cfg: ArchConfig, capacity: int) -> torch.Tensor:
-    """Every expert over the local tokens, summed into one f32 (T, d)
-    accumulator in expert-id order."""
+def _moe_local(
+    params, x_flat: torch.Tensor, cfg: ArchConfig, capacity: int, n_local: Optional[int] = None,
+    e0: int = 0,
+) -> torch.Tensor:
+    """``n_local`` experts (all by default) starting at id ``e0`` over the
+    local tokens, summed into one f32 (T, d) accumulator in expert-id
+    order; ``params``' expert leaves hold just those experts."""
+    n_local = cfg.n_experts if n_local is None else n_local
     topk_idx, topk_w = router_probs(x_flat, params["router"], cfg.top_k)
     acc = torch.zeros(x_flat.shape, dtype=torch.float32, device=x_flat.device)
-    for e in range(cfg.n_experts):
-        w = _expert_weight(topk_idx, topk_w, e)
+    for i in range(n_local):
+        w = _expert_weight(topk_idx, topk_w, e0 + i)
         idx, out = _expert_select_compute(
             x_flat,
             w,
-            params["w_gate"][e],
-            params["w_up"][e] if cfg.mlp_act == "swiglu" else params["w_gate"][e],
-            params["w_down"][e],
+            params["w_gate"][i],
+            params["w_up"][i] if cfg.mlp_act == "swiglu" else params["w_gate"][i],
+            params["w_down"][i],
             capacity,
             cfg.mlp_act,
         )
@@ -114,17 +189,36 @@ def moe_block(
 ) -> torch.Tensor:
     """MoE FFN. params: router (d,E), w_gate/w_up (E,d,f), w_down (E,f,d).
 
-    ``ctx`` is the reference's mesh context; only a model axis of 1 (or
-    none) runs here."""
-    if ctx is not None and ctx.model_size > 1:
-        raise NotImplementedError(
-            f"moe_block over a model axis of {ctx.model_size}: the sharded MoE path is not "
-            "ported yet (ROADMAP.md queue A, the multi-GPU slice)"
-        )
+    Under a ``ctx`` whose model axis is over 1, ``x`` is this rank's batch
+    slice (the same on every rank of its model group) and the expert leaves
+    hold this rank's ``n_experts / model_size`` experts, from
+    ``model_rank * n_local`` on.  The capacity comes from the rank's own
+    tokens, as the reference's shard_map body computes it, so a batch split
+    over data drops tokens per data shard."""
     B, S, d = x.shape
+    dt = x.dtype
     x_flat = x.reshape(B * S, d)
-    y = _moe_local(params, x_flat, cfg, _capacity(B * S, cfg, capacity_factor))
-    return y.to(x.dtype).reshape(B, S, d)
+    cap = _capacity(B * S, cfg, capacity_factor)
+    if ctx is None or ctx.model_size == 1:
+        return _moe_local(params, x_flat, cfg, cap).to(dt).reshape(B, S, d)
+
+    if cfg.n_experts % ctx.model_size != 0:
+        raise ValueError(
+            f"n_experts={cfg.n_experts} not divisible by model axis {ctx.model_size}"
+        )
+    n_local = cfg.n_experts // ctx.model_size
+    for name in ("w_gate", "w_up", "w_down"):
+        if name in params and params[name].shape[0] != n_local:
+            raise ValueError(f"{name} holds {params[name].shape[0]} experts; this rank's shard is "
+                             f"{n_local} of {cfg.n_experts}")
+    group = ctx.model_group
+    local = dict(params)
+    local["router"] = _ToModelRegion.apply(params["router"], group)
+    y = _moe_local(local, _ToModelRegion.apply(x_flat, group), cfg, cap, n_local,
+                   ctx.model_rank * n_local)
+    # Combine in the model dtype, as the reference's psum(y.astype(dt)):
+    # each rank's partial sum is an f32 accumulation, the sum over ranks is not.
+    return _FromModelRegion.apply(y.to(dt), group).reshape(B, S, d)
 
 
 def moe_param_shapes(cfg: ArchConfig) -> dict:

@@ -1,0 +1,246 @@
+"""The cases of the multi-process port tests, and the functions their ranks
+run (through ``repro_torch.distributed.ranks.run_ranks``).
+
+Imported by the test modules, by the rank processes and by the JAX
+subprocess (``_jax_sharded_reference.py``), so it imports neither torch nor
+JAX at module level: inputs are numpy arrays drawn from seeds, and each side
+builds its own config with ``case_cfg``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+PHI, DBRX, JAMBA = "phi3.5-moe-42b-a6.6b", "dbrx-132b", "jamba-1.5-large-398b"
+DANUBE, HUBERT = "h2o-danube-3-4b", "hubert-xlarge"
+
+# ---------------------------------------------------------------------------
+# The sharded MoE block: reduced phi3.5-moe and dbrx (4 experts, top-2), x of
+# 4 x 16 tokens, at a capacity factor of 1.0, which drops tokens at both
+# mesh shapes (the tests check that it does).
+# ---------------------------------------------------------------------------
+BLOCK_ARCHS = [PHI, DBRX]
+BLOCK_DTYPES = ["float32", "bfloat16"]
+BLOCK_MESHES = [(1, 2), (2, 2)]
+BLOCK_B, BLOCK_S = 4, 16
+BLOCK_CAPACITY = 1.0
+TABLE_ARCHS = [PHI, JAMBA]  # the parameter tables held on (2, 2)
+
+
+def case_cfg(configs, arch: str, dtype: str = "float32", **kw):
+    """The reduced config of ``arch`` from either package's ``configs``."""
+    return dataclasses.replace(configs.reduce_for_smoke(configs.get(arch)), dtype=dtype, **kw)
+
+
+def block_key(arch: str, dtype: str, mesh) -> str:
+    return f"{arch}|{dtype}|{mesh[0]}x{mesh[1]}"
+
+
+def block_inputs(cfg, seed: int = 0):
+    """numpy params (N(0, 1/fan_in)), x (B, S, d) and a cotangent for y."""
+    rng = np.random.default_rng(seed)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    shapes = {"router": (d, E), "w_gate": (E, d, f), "w_down": (E, f, d)}
+    if cfg.mlp_act == "swiglu":
+        shapes["w_up"] = (E, d, f)
+    params = {k: (rng.standard_normal(s) / np.sqrt(s[-2])).astype(np.float32) for k, s in shapes.items()}
+    x = rng.standard_normal((BLOCK_B, BLOCK_S, d)).astype(np.float32)
+    g = rng.standard_normal((BLOCK_B, BLOCK_S, d)).astype(np.float32)
+    return params, x, g
+
+
+def _mesh_and_rules(n_data: int, n_model: int):
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    mesh = make_smoke_mesh(n_data, n_model, device_type="cpu")
+    return mesh, ShardingRules(mesh, fsdp_axes=("data",))
+
+
+def sharded_block_rank(rank: int, world: int, n_data: int, n_model: int):
+    """Every block case on an (n_data, n_model) mesh of CPU ranks: this
+    rank's y (its batch slice), in f32 its gradients (x's slice, the router,
+    its experts) of sum(y * g), and at a data axis of 1 the local path's y
+    on the same rank; on (2, 2), also the parameter tables: ``local_slices``
+    of every leaf and whether torch's ``distribute_tensor`` with
+    ``placements`` holds exactly that slice."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import (
+        batch_spec, local_part, local_slices, param_shardings, placements,
+    )
+    from repro_torch.launch.mesh import mesh_sizes
+    from repro_torch.models.model import param_shapes
+    from repro_torch.models.moe import MeshContext, moe_block
+
+    mesh, rules = _mesh_and_rules(n_data, n_model)
+    ctx = MeshContext(mesh, batch_axes=("data",))
+    n_local = None
+    out = {}
+    for arch in BLOCK_ARCHS:
+        for dtype in BLOCK_DTYPES:
+            cfg = case_cfg(configs, arch, dtype, capacity_factor=BLOCK_CAPACITY)
+            n_local = cfg.n_experts // n_model
+            e0 = ctx.model_rank * n_local
+            key = block_key(arch, dtype, (n_data, n_model))
+            params, x, g = block_inputs(cfg)
+            dt = getattr(torch, dtype)
+            full = {k: torch.from_numpy(v).to(dt) for k, v in params.items()}
+            local = {k: (v if k == "router" else v[e0:e0 + n_local]).clone() for k, v in full.items()}
+            xs = local_part(torch.from_numpy(x).to(dt), batch_spec(rules, BLOCK_B, 2), mesh).clone()
+            gs = local_part(torch.from_numpy(g), batch_spec(rules, BLOCK_B, 2), mesh)
+            grads = dtype == "float32"
+            for t in (*local.values(), xs):
+                t.requires_grad_(grads)
+            y = moe_block(local, xs, cfg, ctx)
+            out[f"{key}|y"] = y.detach().float().numpy()
+            if grads:
+                (y.float() * gs).sum().backward()
+                out[f"{key}|grad_x"] = xs.grad.numpy()
+                for k, t in local.items():
+                    out[f"{key}|grad_{k}"] = t.grad.numpy()
+                if n_data == 1:
+                    with torch.no_grad():
+                        out[f"{key}|local_y"] = moe_block(full, xs, cfg).numpy()
+    out["e0"] = np.array(ctx.model_rank * n_local)
+    out["coord"] = np.array(mesh.get_coordinate())
+    if (n_data, n_model) == (2, 2):
+        from torch.distributed.tensor import distribute_tensor
+
+        for arch in TABLE_ARCHS:
+            cfg = case_cfg(configs, arch)
+            specs = param_shardings(rules, cfg, param_shapes(cfg))
+            for path, spec, leaf in _leaves(specs, param_shapes(cfg)):
+                shape = tuple(leaf.shape)
+                sl = local_slices(spec, shape, mesh_sizes(mesh), mesh.get_coordinate())
+                t = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
+                held = distribute_tensor(t, mesh, placements(spec, mesh)).to_local()
+                out[f"table|{arch}|{path}"] = np.array([(s.start, s.stop) for s in sl])
+                out[f"dtensor|{arch}|{path}"] = np.array(torch.equal(held, t[sl]))
+    return out
+
+
+def _leaves(specs, shapes, prefix=""):
+    for k, v in shapes.items():
+        if isinstance(v, dict):
+            yield from _leaves(specs[k], v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", specs[k], v
+
+
+# ---------------------------------------------------------------------------
+# The rules-aware serving steps on (data 2, model 2): reduced configs in f32,
+# weights from DecoderLM.from_config's seed.  The MoE configs take a
+# capacity factor of 4.0, at which no token is dropped: the single-process
+# run computes the capacity of the global batch, each data shard that of
+# its own tokens, so only without drops do the two compute the same
+# function.
+# ---------------------------------------------------------------------------
+SERVE_CASES = [(PHI, 2), (PHI, 1), (DANUBE, 2), (JAMBA, 2)]  # (arch, global batch)
+SERVE_S, SERVE_NEW, NO_DROP_CAPACITY = 16, 4, 4.0
+ENCODE_B, ENCODE_S = 2, 16
+SEED = 3
+
+
+def serve_cfg(configs, arch: str):
+    kw = {"capacity_factor": NO_DROP_CAPACITY} if configs.get(arch).n_experts else {}
+    return case_cfg(configs, arch, **kw)
+
+
+def serve_prompt(cfg, B: int) -> np.ndarray:
+    return np.random.default_rng(B).integers(0, cfg.vocab, (B, SERVE_S)).astype(np.int64)
+
+
+def encode_frames(cfg) -> np.ndarray:
+    return np.random.default_rng(5).standard_normal((ENCODE_B, ENCODE_S, cfg.d_model)).astype(np.float32)
+
+
+def greedy(prefill, decode, model, prompt, n_new: int, full, grow):
+    """Prefill, ``grow`` the state's K/V caches by ``n_new`` slots, then
+    ``n_new`` greedy decode steps; ``full`` turns a step's logits into the
+    global (B, V) logits.  Returns (tokens (B, n_new), the logits of every
+    step, the state)."""
+    import torch
+
+    logits, state = prefill(model, {"tokens": prompt})
+    state = grow(state, n_new)
+    toks, seen = [], []
+    for step in range(n_new):
+        logits = full(logits)
+        seen.append(logits)
+        tok = torch.argmax(logits, -1)[:, None]
+        toks.append(tok)
+        if step + 1 < n_new:
+            logits, state = decode(model, state, tok, prompt.shape[1] + step)
+    return torch.cat(toks, 1), torch.stack(seen), state
+
+
+def steps_rank(rank: int, world: int):
+    """Every serving case through the rules-aware steps on (2, 2): greedy
+    tokens and logits (gathered to the global batch), each decode cache
+    shard's shape against ``state_shardings``; hubert's encoder logits; and
+    what ``make_train_step`` with the rules raises."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import (
+        ShardedLM, batch_spec, from_local, gather, local_slices, placements, shard_state,
+        state_shardings,
+    )
+    from repro_torch.launch.mesh import mesh_sizes
+    from repro_torch.launch.steps import make_decode_step, make_encoder_step, make_prefill_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import DecoderLM, init_decode_state
+    from repro_torch.serving.engine import grow_kv
+    from repro_torch.training.optimizer import OptSettings
+
+    mesh, rules = _mesh_and_rules(2, 2)
+    out = {}
+
+    def rows(t, B):
+        """The global (B, ...) tensor of which ``t`` is this rank's rows."""
+        spec = batch_spec(rules, B, t.ndim - 1)
+        return from_local(t.contiguous(), mesh, placements(spec, mesh), (B, *t.shape[1:])).full_tensor()
+
+    for arch, global_b in SERVE_CASES:
+        cfg = serve_cfg(configs, arch)
+        model = ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules)
+        prompt = torch.from_numpy(serve_prompt(cfg, global_b))
+        prefill = make_prefill_step(cfg, rules, global_b)
+        decode = make_decode_step(cfg, rules, global_b)
+        def grow(state, n, B=global_b, cfg=cfg):
+            """Gathered to this rank's rows, grown, laid out again."""
+            caches, kv_len = state
+            held = {pos: {name: gather(t, keep_dims=(1,)) for name, t in sub.items()}
+                    for pos, sub in caches.items()}
+            return shard_state(rules, cfg, (grow_kv(held, n), kv_len.to_local()), B)
+
+        toks, logits, (caches, kv_len) = greedy(prefill, decode, model, prompt, SERVE_NEW,
+                                                lambda t, B=global_b: rows(t, B), grow)
+        key = f"{arch}|{global_b}"
+        out[f"{key}|tokens"] = toks.numpy()
+        out[f"{key}|logits"] = logits.numpy()
+        want, kv_spec = state_shardings(rules, cfg, init_decode_state(cfg, global_b, SERVE_S + SERVE_NEW,
+                                                                      device="meta"))
+        coord = mesh.get_coordinate()
+        for pos, sub in caches.items():
+            for name, dt in sub.items():
+                sl = local_slices(want[pos][name], dt.shape, mesh_sizes(mesh), coord)
+                out[f"{key}|layout|{pos}/{name}"] = np.array(
+                    [tuple(dt.to_local().shape) == tuple(s.stop - s.start for s in sl),
+                     tuple(dt.shape) == (cfg.n_periods, global_b, *dt.shape[2:])])
+        out[f"{key}|layout|kv_len"] = np.array(
+            [tuple(kv_len.to_local().shape) == tuple(
+                s.stop - s.start for s in local_slices(kv_spec, (global_b,), mesh_sizes(mesh), coord))])
+    cfg = case_cfg(configs, HUBERT)
+    model = ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules)
+    enc = make_encoder_step(cfg, rules, ENCODE_B)(model, {"frame_embeds": torch.from_numpy(encode_frames(cfg))})
+    out[f"{HUBERT}|logits"] = rows(enc, ENCODE_B).numpy()
+    try:
+        make_train_step(serve_cfg(configs, PHI), OptSettings(), rules, 2)
+        out["train_raises"] = np.array("")
+    except NotImplementedError as e:
+        out["train_raises"] = np.array(str(e))
+    return out

@@ -198,11 +198,14 @@ def test_capacity_drops_the_same_tokens_as_reference():
 
 
 def test_sharded_context_raises():
+    """A model axis that does not divide the experts raises, as the
+    reference's does (the sharded path itself is held across processes in
+    tests/test_torch_sharded_moe.py); a model axis of 1 is the local path."""
     _, tcfg = _block_cfgs("swiglu", "float32")
     params, x = _block_inputs(tcfg, seed=0)
     tp = {k: torch.from_numpy(v) for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TMoE.moe_block(tp, torch.from_numpy(x), tcfg, ctx=types.SimpleNamespace(model_size=2))
+    with pytest.raises(ValueError, match="n_experts=8 not divisible by model axis 3"):
+        TMoE.moe_block(tp, torch.from_numpy(x), tcfg, ctx=types.SimpleNamespace(model_size=3))
     single = TMoE.moe_block(tp, torch.from_numpy(x), tcfg, ctx=types.SimpleNamespace(model_size=1))
     assert torch.equal(single, TMoE.moe_block(tp, torch.from_numpy(x), tcfg))
 

@@ -1,0 +1,91 @@
+"""The port's rules-aware serving steps on (data 2, model 2) against its own
+single-process steps.
+
+The reference's rules-aware steps do not run under JAX 0.9 (``decode_step``
+with an activation spec raises ``DuplicateSpecError``, model.py:428-429 via
+steps.py:150), so the port's are held against the port's single-process
+path, which tests/test_torch_steps.py holds against the reference.  One
+rank group of four CPU processes (``run_ranks``, gloo over a file store)
+runs every case (``_torch_rank_cases.steps_rank``); this process never
+joins a process group.
+
+Held: greedy tokens of reduced phi3.5-moe (batch 2, and batch 1, which
+divides no data axis), danube and jamba through ``make_prefill_step`` and
+``make_decode_step`` with rules, exactly equal to the single-process run
+(tests/test_serving.py:51's standard), with their logits at 2e-3; each
+rank's decode-cache shards shaped as ``state_shardings`` lays them out;
+hubert's ``make_encoder_step`` logits at 2e-3; and ``make_train_step`` with
+the rules raising.  The MoE configs run at a capacity that drops no token
+(``_torch_rank_cases.NO_DROP_CAPACITY``): a data shard's capacity is that of
+its own tokens, the single process's that of the global batch.
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_steps_rules.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
+import _torch_rank_cases as C  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.distributed.ranks import run_ranks  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_decode_step,
+    make_encoder_step,
+    make_prefill_step,
+)
+from repro_torch.models.model import DecoderLM  # noqa: E402
+from repro_torch.serving.engine import grow_kv  # noqa: E402
+
+pytestmark = pytest.mark.slow  # starts a group of four processes
+
+TOL = 2e-3
+CASE_IDS = [f"{a}-B{b}" for a, b in C.SERVE_CASES]
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    return run_ranks(C.steps_rank, 4, env={"JAX_PLATFORMS": "cpu"})
+
+
+def _single(arch, B):
+    cfg = C.serve_cfg(tconfigs, arch)
+    model = DecoderLM.from_config(cfg, seed=C.SEED, device="cpu")
+    prompt = torch.from_numpy(C.serve_prompt(cfg, B))
+    toks, logits, _ = C.greedy(make_prefill_step(cfg), make_decode_step(cfg), model, prompt,
+                               C.SERVE_NEW, lambda t: t, lambda st, n: (grow_kv(st[0], n), st[1]))
+    return toks.numpy(), logits.numpy()
+
+
+@pytest.mark.parametrize("arch,B", C.SERVE_CASES, ids=CASE_IDS)
+def test_greedy_tokens_equal_single_process(ranks, arch, B):
+    want_toks, want_logits = _single(arch, B)
+    key = f"{arch}|{B}"
+    for r in ranks:
+        np.testing.assert_array_equal(r[f"{key}|tokens"], want_toks)
+        np.testing.assert_allclose(r[f"{key}|logits"], want_logits, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("arch,B", C.SERVE_CASES, ids=CASE_IDS)
+def test_decode_state_follows_state_shardings(ranks, arch, B):
+    key = f"{arch}|{B}|layout|"
+    for r in ranks:
+        held = {k: r[k] for k in r if k.startswith(key)}
+        assert f"{key}kv_len" in held and len(held) > 1
+        for k, ok in held.items():
+            assert ok.all(), k
+
+
+def test_encoder_logits_match_single_process(ranks):
+    cfg = C.case_cfg(tconfigs, C.HUBERT)
+    model = DecoderLM.from_config(cfg, seed=C.SEED, device="cpu")
+    want = make_encoder_step(cfg)(model, {"frame_embeds": torch.from_numpy(C.encode_frames(cfg))})
+    for r in ranks:
+        np.testing.assert_allclose(r[f"{C.HUBERT}|logits"], want.numpy(), atol=TOL, rtol=TOL)
+
+
+def test_train_step_with_rules_raises(ranks):
+    for r in ranks:
+        assert "sharded training" in str(r["train_raises"]), r["train_raises"]
