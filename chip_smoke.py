@@ -74,9 +74,20 @@ its check does not hold:
    sharded over two gloo ranks on the one card (``run_ranks``, 8 experts a
    rank, the combine an ``all_reduce`` of CUDA tensors), f32 exactly equal
    to the local block in this process and bf16 exactly equal to the bf16
-   sum of the two halves' bf16 partial sums (``moe_sharded`` line); the
-   lm-100m example at its defaults (300 f32 steps), whose loss must fall;
-   and a checkpoint round trip at lm-test size, bit for bit;
+   sum of the two halves' bf16 partial sums (``moe_sharded`` line); after
+   danube's ``train`` line, ``roofline``: ``launch/counting.py`` and
+   ``launch/roofline.py::analyze`` over one step of the same cell (counted
+   FLOPs, eager bytes, the roofline terms and ``bound_s`` beside the measured
+   median step); after ``moe_sharded``, ``train_sharded``: the sharded f32
+   train step on two gloo ranks of the one card (danube at full width cut to
+   2 layers on data 2 x model 1, B 2 x S 512; phi3.5-moe at full width cut to
+   1 layer on data 1 x model 2, B 1 x S 256), each rank's loss, global grad
+   norm, gradient shards and updated shards against its slices of the
+   one-process step on the card at 2e-3, with the c10d collectives that
+   gather the shards and reduce the gradients (``gather``, ``reduce``);
+   the lm-100m example at
+   its defaults (300 f32 steps), whose loss must fall; and a checkpoint
+   round trip at lm-test size, bit for bit;
 7. one JSON line of the kernel variants, the nvidia-smi line, and the result
    line.
 
@@ -1341,6 +1352,213 @@ def moe_sharded_check(configs, kernels) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Sharded training: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+# (arch, layers, (data, model), global batch, seq), all on one group of two
+# gloo ranks: danube cut to 2 layers with the batch split over data (one row
+# a rank), phi3.5-moe cut to 1 layer (train_check's size, about 25 GB of f32
+# state in one process) with its 16 experts split over model (8 a rank)
+SHARDED_TRAIN_CASES = (("h2o-danube-3-4b", 2, (2, 1), 2, 512),
+                       ("phi3.5-moe-42b-a6.6b", 1, (1, 2), 1, 256))
+
+
+def sharded_train_cfg(configs, arch: str, layers: int):
+    return dataclasses.replace(configs.get(arch), n_layers=layers, dtype="float32")
+
+
+class StepSpy:
+    """Wraps ``launch.steps.adamw_update`` while in use: the gradients the
+    train step hands the optimizer (on the host, f32) and their global norm,
+    so one ``make_train_step`` call gives both."""
+
+    def __init__(self, norm):
+        self.norm, self.grads, self.grad_norm = norm, None, None
+
+    def __enter__(self):
+        from repro_torch.launch import steps
+
+        self.steps, self.orig = steps, steps.adamw_update
+
+        def spied(params, grads, opt_state, settings):
+            self.grad_norm = float(self.norm(params, grads))
+            self.grads = {n: g.float().cpu() for n, g in grads.items()}
+            return self.orig(params, grads, opt_state, settings)
+
+        steps.adamw_update = spied
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.adamw_update = self.orig
+
+
+def train_sharded_rank(rank: int, world: int) -> dict:
+    """One rank of the sharded f32 train step on the card, every case of
+    ``SHARDED_TRAIN_CASES`` in turn (each on its own mesh over the one
+    group): one ``make_train_step`` from fresh moments, its loss, the
+    gradient shards and global norm it handed the optimizer, every updated
+    shard and its slices, the step's wall ms (with the
+    gradients' copy to the host) and the rank's peak memory."""
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import ShardedLM, ShardingRules
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training.optimizer import OptSettings, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, layers, (n_data, n_model), B, S in SHARDED_TRAIN_CASES:
+        cfg = sharded_train_cfg(configs, arch, layers)
+        rules = ShardingRules(make_smoke_mesh(n_data, n_model, device_type="cuda"), fsdp_axes=("data",))
+        model = ShardedLM(DecoderLM.from_config(cfg, seed=0, device="cuda"), rules, trainable=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        settings = OptSettings.auto(cfg.param_count())
+        opt = adamw_init(model, settings)
+        step = make_train_step(cfg, settings, rules, B)
+        batch = train_batch(cfg.vocab, B, S, 7, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with StepSpy(lambda m, g: m.grad_norm(g)) as spy:
+            loss, model, opt = step(model, opt, batch)
+        out[f"{arch}|loss"] = loss.cpu().numpy()
+        out[f"{arch}|step_ms"] = np.array((time.monotonic() - t0) * 1e3)
+        out[f"{arch}|peak_gb"] = np.array(torch.cuda.max_memory_allocated() / 1e9)
+        out[f"{arch}|grad_norm"] = np.array(spy.grad_norm)
+        for n, p in model.named_parameters():
+            out[f"{arch}|param|{n}"] = p.detach().float().cpu().numpy()
+            out[f"{arch}|grad|{n}"] = spy.grads[n].numpy()
+            out[f"{arch}|slice|{n}"] = np.array([(s.start, s.stop) for s in model.slices(n)])
+        del model, opt, spy, batch, loss
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_sharded_check(configs, kernels) -> list:
+    """Each case of ``SHARDED_TRAIN_CASES`` in f32: first one process on the
+    card (the gradients and norm its step hands AdamW, its loss and updated
+    parameters, kept on the host, the card freed), then the sharded step on
+    two gloo ranks of the card through ``run_ranks``, one group for every
+    case.  Each rank returns its shards, held against its slices of the
+    one-process results at 2e-3: the loss, the global grad norm, every
+    gradient (2e-3 of the leaf's largest magnitude, plus 2e-3 relative) and
+    every updated parameter.  The wall ms are of two processes sharing one
+    card, so not a speed."""
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training.optimizer import OptSettings, _global_norm, adamw_init
+
+    t_phase = time.monotonic()
+    zero_counts(kernels)
+    one = {}
+    for arch, layers, mesh, B, S in SHARDED_TRAIN_CASES:
+        cfg = sharded_train_cfg(configs, arch, layers)
+        settings = OptSettings.auto(cfg.param_count())
+        model = DecoderLM.from_config(cfg, seed=0, device="cuda", trainable=True)
+        opt = adamw_init(model, settings)
+        step = make_train_step(cfg, settings)
+        batch = train_batch(cfg.vocab, B, S, 7, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with StepSpy(lambda m, g: _global_norm(g.values())) as spy:
+            loss, model, opt = step(model, opt, batch)
+        one[arch] = dict(loss=loss.item(), ms=(time.monotonic() - t0) * 1e3, grad_norm=spy.grad_norm,
+                         grads=spy.grads, params={n: p.detach().cpu() for n, p in model.named_parameters()})
+        del model, opt, batch, loss, spy
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = run_ranks(train_sharded_rank, 2, backend="gloo", device="cuda", timeout_s=600)
+    ranks_s = time.monotonic() - t0
+    rows = []
+    for arch, layers, mesh, B, S in SHARDED_TRAIN_CASES:
+        want = one.pop(arch)
+        worst = dict(params=0.0, grads=0.0)
+        for r, res in enumerate(ranks):
+            for what, key in (("loss", "loss"), ("global grad norm", "grad_norm")):
+                a, b = float(res[f"{arch}|{key}"]), want[key]
+                check(np.isfinite(a) and abs(a - b) <= MODEL_TOL * (1 + abs(b)),
+                      f"train_sharded {arch}: rank {r} {what} {a}, one process {b}")
+            for n, p in want["params"].items():
+                sl = tuple(slice(int(a), int(b)) for a, b in res[f"{arch}|slice|{n}"])
+                ok, err, share = close(torch.from_numpy(res[f"{arch}|param|{n}"]), p[sl], MODEL_TOL)
+                check(ok, f"train_sharded {arch}: rank {r} parameter {n} differs by {err}")
+                worst["params"] = max(worst["params"], share)
+                g = want["grads"][n][sl]
+                scale = max(g.abs().max().item(), torch.finfo(torch.float32).tiny)
+                ok, err, share = close(torch.from_numpy(res[f"{arch}|grad|{n}"]), g, MODEL_TOL, MODEL_TOL * scale)
+                check(ok, f"train_sharded {arch}: rank {r} gradient of {n} differs by {err} "
+                          f"(largest magnitude {scale})")
+                worst["grads"] = max(worst["grads"], share)
+        row = dict(arch=arch, layers=layers, dtype="float32", mesh=f"data {mesh[0]} x model {mesh[1]}",
+                   backend="gloo", gather="all_gather_into_tensor",
+                   reduce="reduce_scatter_tensor (all_reduce where the leaf is replicated)", batch=B, seq=S,
+                   params=sharded_train_cfg(configs, arch, layers).param_count(),
+                   loss=want["loss"], grad_norm=want["grad_norm"],
+                   rank_loss=[float(res[f"{arch}|loss"]) for res in ranks],
+                   rank_grad_norm=[float(res[f"{arch}|grad_norm"]) for res in ranks],
+                   params_worst_tol_share=worst["params"], grads_worst_tol_share=worst["grads"],
+                   one_process_step_ms=want["ms"], rank_step_ms=[float(res[f"{arch}|step_ms"]) for res in ranks],
+                   rank_peak_gb=[float(res[f"{arch}|peak_gb"]) for res in ranks], run_ranks_s=ranks_s,
+                   phase_s_so_far=time.monotonic() - t_phase,
+                   rank_ms_note="two processes sharing one card, the gradients copied to the host "
+                                "inside the step: not a speed")
+        print("train_sharded " + json.dumps(row), flush=True)
+        rows.append(row)
+        del want
+    counts = read_counts(kernels)
+    check(not any(counts.values()), f"the sharded training check launched hand kernels: {counts}")
+    return rows
+
+
+def roofline_check(configs, train_row: dict) -> dict:
+    """``launch/counting.py`` and ``launch/roofline.py::analyze`` over one
+    step of danube's training cell (the full model, bf16, 2 x 2048, one
+    process, real tensors on the card), beside the median ``compute_s`` the
+    ``train`` phase measured: the counted FLOPs and eager bytes, the
+    roofline terms and ``bound_s``."""
+    from repro_torch.launch.counting import count_step
+    from repro_torch.launch.roofline import analyze
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training.optimizer import OptSettings, adamw_init
+
+    cfg = configs.get(TRAIN_ARCH)
+    shape = ShapeConfig(f"train_{TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B, "train")
+    settings = OptSettings.auto(cfg.param_count())
+    model = DecoderLM.from_config(cfg, seed=0, device="cuda", trainable=True)
+    opt = adamw_init(model, settings)
+    step = make_train_step(cfg, settings)
+    batch = train_batch(cfg.vocab, TRAIN_B, TRAIN_S, 6, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    (loss, _, _), counts = count_step(step, model, opt, batch)
+    loss = loss.item()
+    counted_s = time.monotonic() - t0
+    r = analyze(cfg.name, shape.name, "1x1", 1, counts, cfg, shape)
+    measured = train_row["median_step_s"]
+    row = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, batch=TRAIN_B, seq=TRAIN_S, mesh="1x1",
+               flops=counts.flops, hbm_bytes=counts.hbm_bytes, collective_bytes=counts.collective_bytes,
+               model_flops=r.model_flops, useful_ratio=r.useful_ratio, compute_s=r.compute_s,
+               memory_s=r.memory_s, collective_s=r.collective_s, bound_s=r.bound_s, dominant=r.dominant,
+               measured_median_compute_s=measured, measured_over_bound=measured / r.bound_s,
+               counted_step_s=counted_s, loss=loss,
+               note="memory_s is eager bytes (every op's inputs and outputs) at 3.35 TB/s: "
+                    "an unfused upper bound")
+    print("roofline " + json.dumps(row), flush=True)
+    check(np.isfinite(loss) and counts.flops > 0 and counts.hbm_bytes > 0 and counts.collective_bytes == 0,
+          f"roofline: counts {counts}")
+    check(r.compute_s < measured, f"roofline: the compute term {r.compute_s} s is over the measured "
+                                  f"step {measured} s, so the FLOP count is wrong")
+    check(0.3 < r.useful_ratio < 1.0, f"roofline: useful ratio {r.useful_ratio} (forward, recompute and "
+                                      "backward of a dense model: about 0.7)")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return row
+
+
 def train_e2e_example(tmp: str) -> dict:
     """The port's twin of examples/train_lm_e2e.py at its defaults (lm-100m,
     f32, 300 steps) on the card; its loss must fall."""
@@ -1480,10 +1698,12 @@ def main() -> None:
     encoder = encoder_main_path(configs, M, kernels)
 
     train_f32_check(configs, kernels)
-    train_main_path(configs, kernels, card)
+    danube_train = train_main_path(configs, kernels, card)
+    roofline_check(configs, danube_train)
     train_f32_check(configs, kernels, MOE_TRAIN_ARCH, MOE_CHECK_LAYERS, MOE_CHECK_S)
     train_main_path(configs, kernels, card, MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)
     moe_sharded_check(configs, kernels)
+    train_sharded_check(configs, kernels)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_e2e_example(tmp)
         checkpoint_round_trip(tmp)

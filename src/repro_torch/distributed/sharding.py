@@ -23,21 +23,23 @@ holds.
 
 ``ShardedLM`` stores a model's parameters as ``param_shardings`` lays them
 out, each rank holding only its shards, and gathers each period's leaves on
-use, which is the gather-on-use FSDP the reference gets from GSPMD; the
-MoE expert leaves keep their ``model`` shard (the sharded ``moe_block``
-takes the local experts).
+use, which is the gather-on-use FSDP the reference gets from GSPMD
+(``src/repro/distributed/sharding.py:7-9``); the MoE expert leaves keep
+their ``model`` shard (the sharded ``moe_block`` takes the local experts).
+Its shards take gradients: ``_GatherOnUse`` holds the rule by which each
+gradient goes back to its shard.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Dict, Sequence, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import Block, DecoderLM, param_shapes
+from repro_torch.models.model import DecoderLM, param_shapes
 
 
 def P(*entries) -> tuple:
@@ -318,12 +320,6 @@ def from_local(local: torch.Tensor, mesh, places, shape):
                               stride=_contiguous_stride(shape))
 
 
-def distribute(t: torch.Tensor, spec: Sequence, mesh):
-    """``t`` (the same on every rank) as a DTensor laid out by ``spec``: each
-    rank keeps its shard and drops the rest, with no collective."""
-    return from_local(local_part(t, spec, mesh).contiguous(), mesh, placements(spec, mesh), t.shape)
-
-
 def _kept(places, keep_dims) -> list:
     from torch.distributed.tensor import Replicate
 
@@ -346,69 +342,262 @@ def _period_dtensor(dt, p: int):
 
 
 # ---------------------------------------------------------------------------
+# Gather on use, and the gradient rule
+# ---------------------------------------------------------------------------
+# Both directions are c10d collectives over one mesh axis at a time
+# (``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``):
+# gloo takes them on CPU and CUDA tensors, NCCL on CUDA tensors, and the
+# dry-run's fake group under ``FakeTensorMode``.  (DTensor's all-gather, a
+# functional collective, killed a gloo rank on CUDA tensors on the card.)
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """How one parameter leaf is laid out: its spec, DTensor placements and
+    global shape and dtype, the dims a gather leaves split (the MoE
+    experts' E), and the mesh axes that split it."""
+
+    spec: tuple
+    places: tuple
+    shape: tuple
+    dtype: torch.dtype
+    keep: tuple
+    split_axes: tuple
+
+
+def _sum_axes(mesh, axes) -> tuple:
+    sizes = mesh_sizes(mesh)
+    return tuple(a for a in axes if sizes[a] > 1)
+
+
+def _gathered_dim(layout: _Layout, mesh, i: int):
+    """The dim of the leaf that mesh axis ``i`` splits and a gather joins,
+    or None."""
+    p = layout.places[i]
+    if p.is_shard() and p.dim not in layout.keep and mesh.size(i) > 1:
+        return p.dim
+    return None
+
+
+def _gathered(local: torch.Tensor, mesh, layout: _Layout) -> torch.Tensor:
+    """``local`` gathered over every mesh axis that splits it but a kept
+    dim's, the last axis first: a dim split over several axes is laid out
+    first-axis-major."""
+    import torch.distributed as dist
+
+    t = local
+    for i in reversed(range(mesh.ndim)):
+        dim = _gathered_dim(layout, mesh, i)
+        if dim is not None:
+            part = t.movedim(dim, 0).contiguous()
+            whole = part.new_empty((mesh.size(i) * part.shape[0], *part.shape[1:]))
+            dist.all_gather_into_tensor(whole, part, group=mesh.get_group(i))
+            t = whole.movedim(0, dim)
+    return local if t is local else t.contiguous()
+
+
+def _reduced(grad: torch.Tensor, mesh, layout: _Layout, sum_axes: tuple) -> torch.Tensor:
+    """The gradient of a gathered leaf brought back to this rank's shard,
+    the first axis first (the gather's inverse): over an axis of
+    ``sum_axes`` summed (reduce-scatter where the axis splits the leaf,
+    all-reduce where it replicates it), over any other axis sliced."""
+    import torch.distributed as dist
+
+    g, coord = grad, mesh.get_coordinate()
+    for i, axis in enumerate(mesh_sizes(mesh)):
+        dim, n = _gathered_dim(layout, mesh, i), mesh.size(i)
+        if axis in sum_axes and dim is not None:
+            part = g.movedim(dim, 0).contiguous()
+            out = part.new_empty((part.shape[0] // n, *part.shape[1:]))
+            dist.reduce_scatter_tensor(out, part, group=mesh.get_group(i))
+            g = out.movedim(0, dim)
+        elif axis in sum_axes:
+            g = g.clone(memory_format=torch.contiguous_format)  # never the caller's cotangent
+            dist.all_reduce(g, group=mesh.get_group(i))
+        elif dim is not None:
+            step = g.shape[dim] // n
+            g = g.narrow(dim, coord[i] * step, step)
+    return g.contiguous()
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """A leaf's shard gathered for use, with the gradient rule of sharded
+    training.  (An autograd Function rather than DTensor's ``to_local(
+    grad_placements=...)``, so the gradient rule is the c10d code of
+    ``_reduced``, on every backend.)
+
+    Forward: the shard gathered over every mesh axis but those that split a
+    kept dim.
+
+    Backward: the cotangent is this rank's gradient of ITS OWN loss with
+    respect to the gathered leaf; each rank's loss is the masked sum of its
+    own rows divided by the count of the GLOBAL batch's labels
+    (``launch.steps.loss_and_grads``), so the global loss is the sum of the
+    ranks' losses.  DTensor's default (``to_local()`` takes the gradient as
+    Replicate on every axis) would only slice it back to the shard: each
+    data rank would keep the gradient of its own rows and drop the others',
+    a wrong update and no error.  The rule:
+      * over ``sum_axes``, the batch axes that split the batch, the ranks saw
+        different rows: the gradient is SUMMED over them (a reduce-scatter
+        where the leaf is split on the axis, an all-reduce where it is
+        replicated);
+      * over ``model``, and over a data axis the batch does not divide (every
+        rank then takes the whole batch), every rank computed the same
+        gradient: it is SLICED, never summed.  The sharded ``moe_block``
+        already sums its token and router cotangents over ``model``;
+      * a kept dim (E of the MoE experts, split on ``model``) stays split:
+        each rank's cotangent is that of its own experts, summed over the
+        batch axes only.
+    """
+
+    @staticmethod
+    def forward(ctx, local, mesh, layout: _Layout, sum_axes: tuple):
+        ctx.meta = (mesh, layout, sum_axes)
+        t = _gathered(local.detach(), mesh, layout)
+        return local.view_as(local) if t is local else t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduced(grad, *ctx.meta), None, None, None
+
+
+def gather_on_use(local: torch.Tensor, mesh, layout: _Layout, sum_axes: tuple):
+    """A leaf's shard gathered for use: through ``_GatherOnUse`` where a
+    gradient is wanted, a plain gather otherwise."""
+    if local.requires_grad and torch.is_grad_enabled():
+        return _GatherOnUse.apply(local, mesh, layout, sum_axes)
+    return _gathered(local, mesh, layout)
+
+
+# ---------------------------------------------------------------------------
 # A model stored sharded
 # ---------------------------------------------------------------------------
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
+def _leaf_layouts(cfg: ArchConfig, rules: ShardingRules) -> Dict[str, _Layout]:
+    """The layout of every parameter, by ``DecoderLM`` parameter name and in
+    its order: a per-period parameter takes its stacked leaf's spec without
+    the period axis."""
+    mesh = rules.mesh
+    names = list(mesh_sizes(mesh))
+    shapes = param_shapes(cfg)
+    specs = param_shardings(rules, cfg, shapes)
+    moe = {f"pos{i}" for i, kind in enumerate(cfg.mlp_pattern) if kind == "moe"}
+
+    def layout(spec, leaf, shape, keep=()):
+        places = tuple(placements(spec, mesh))
+        split = tuple(a for a, p in zip(names, places) if p.is_shard() and mesh_sizes(mesh)[a] > 1)
+        return _Layout(tuple(spec), places, tuple(shape), leaf.dtype, keep, split)
+
+    out = {}
+    for name in ("embed", "head", "final_norm"):
+        if name in shapes:
+            out[name] = layout(specs[name], shapes[name], shapes[name].shape)
+    for p in range(cfg.n_periods):
+        for pos, sub in shapes["stack"].items():
+            for path, leaf in _tree_paths(sub):
+                expert = pos in moe and path[0] == "mlp" and path[-1] in _EXPERT_LEAVES
+                out[".".join(("layers", str(p), pos, *path))] = layout(
+                    _lookup(specs["stack"][pos], path)[1:], leaf, leaf.shape[1:],
+                    (0,) if expert else ())
+    return out
+
+
 class ShardedLM:
     """A ``DecoderLM``'s parameters laid out as ``param_shardings`` says, each
-    rank holding only its shards (DTensors), one set per period: the period
-    axis is never sharded.  It reads as a ``DecoderLM`` to the model code:
-    ``embed``, ``head`` and ``final_norm`` are gathered on each access, and
-    iterating ``layers`` gathers one period's leaves at a time and drops
-    them when the loop moves on.  A MoE position's expert leaves are
-    gathered over every axis but the one splitting E, so each rank holds
-    its ``n_experts / model_size`` experts, as the sharded ``moe_block``
-    wants.  ``cache_periods`` does the same for a decode state laid out by
-    ``state_shardings`` (``shard_state``)."""
+    rank holding only its shards, one set per period (the period axis is
+    never sharded).
 
-    def __init__(self, model: DecoderLM, rules: ShardingRules):
-        self.cfg, self.rules = model.cfg, rules
-        mesh = rules.mesh
-        specs = param_shardings(rules, self.cfg, param_shapes(self.cfg))
-        self._top = {
-            name: distribute(t.detach(), specs[name], mesh)
-            for name, t in model.named_parameters() if "." not in name
-        }
-        self._periods = []
-        for period in model.layers:
-            tree = {}
-            for pos, blk in period.items():
-                spec = specs["stack"][pos]
-                tree[pos] = _map_paths(_nested(blk), lambda path, t, spec=spec: distribute(
-                    t.detach(), _lookup(spec, path)[1:], mesh))
-            self._periods.append(tree)
+    ``named_parameters()`` yields each shard under its ``DecoderLM`` name, a
+    leaf that takes gradients when ``trainable``: the optimizer's moments and
+    the checkpoint reach every shard by that name.  ``view()`` is what the
+    model code reads: it gathers ``embed``, ``head`` and ``final_norm`` once,
+    and each period's leaves only when the period code asks for a position,
+    inside its remat region, so the backward gathers again and only shards
+    outlive a period (GSPMD's gather on use under ``remat_policy="minimal"``).
+    A MoE position's expert leaves are gathered over every axis but the one
+    splitting E, so each rank holds its ``n_experts / model_size`` experts,
+    as the sharded ``moe_block`` wants.  ``cache_periods`` does the same for
+    a decode state laid out by ``state_shardings`` (``shard_state``)."""
+
+    def __init__(self, model: DecoderLM, rules: ShardingRules, trainable: bool = False):
+        full = dict(model.named_parameters())
+        self._setup(model.cfg, rules, trainable,
+                    lambda name, lay: local_part(full[name].detach(), lay.spec, rules.mesh).clone())
+
+    @classmethod
+    def empty(cls, cfg: ArchConfig, rules: ShardingRules, device, trainable: bool = False) -> "ShardedLM":
+        """Uninitialised shards, never a whole leaf: under ``FakeTensorMode``
+        the dry-run's model, which allocates nothing."""
+        self = cls.__new__(cls)
+        sizes, coord = mesh_sizes(rules.mesh), rules.mesh.get_coordinate()
+
+        def shard(name, lay):
+            sl = local_slices(lay.spec, lay.shape, sizes, coord)
+            return torch.empty([s.stop - s.start for s in sl], dtype=lay.dtype, device=device)
+
+        self._setup(cfg, rules, trainable, shard)
+        return self
+
+    def _setup(self, cfg, rules, trainable, shard) -> None:
+        self.cfg, self.rules, self.mesh = cfg, rules, rules.mesh
+        self._layout = _leaf_layouts(cfg, rules)
+        self._local = {name: shard(name, lay).requires_grad_(trainable)
+                       for name, lay in self._layout.items()}
+        self._positions = [{} for _ in range(cfg.n_periods)]  # period -> pos -> [(path, name)]
+        for name in self._local:
+            if name.startswith("layers."):
+                _, p, pos, *path = name.split(".")
+                self._positions[int(p)].setdefault(pos, []).append((tuple(path), name))
+
+    def named_parameters(self):
+        return iter(self._local.items())
+
+    def parameters(self):
+        return iter(self._local.values())
 
     @property
     def device(self) -> torch.device:
-        return self._top["final_norm"].to_local().device
+        return self._local["final_norm"].device
 
-    @property
-    def embed(self):
-        return gather(self._top["embed"]) if "embed" in self._top else None
+    def slices(self, name: str) -> tuple:
+        """The index slices of the whole leaf ``name`` this rank holds."""
+        lay = self._layout[name]
+        return local_slices(lay.spec, lay.shape, mesh_sizes(self.mesh), self.mesh.get_coordinate())
 
-    @property
-    def head(self) -> torch.Tensor:
-        return gather(self._top["head"])
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf of which ``t`` is this rank's shard laid out like
+        parameter ``name`` (the parameter or one of its moments); every rank
+        of the group must ask."""
+        lay = self._layout[name]
+        return _gathered(t.detach(), self.mesh, dataclasses.replace(lay, keep=()))
 
-    @property
-    def final_norm(self) -> torch.Tensor:
-        return gather(self._top["final_norm"])
+    def view(self, sum_axes: Sequence[str] = ()):
+        """What the model code reads for one forward (``_View``); ``sum_axes``
+        are the batch axes that split the batch, over which the gradients
+        are summed."""
+        return _View(self, _sum_axes(self.mesh, sum_axes))
 
-    @property
-    def layers(self):
-        moe = {f"pos{i}" for i, kind in enumerate(self.cfg.mlp_pattern) if kind == "moe"}
+    def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global gradient norm, each element of the global gradient
+        counted once: every rank sums the squares of its own shards in f32,
+        grouped by the mesh axes that split the leaf, and each group's sum is
+        all-reduced over exactly those axes, never over one that replicates
+        the leaf (which would count the leaf once per rank of that axis)."""
+        import torch.distributed as dist
 
-        def take(pos, path, dt):
-            expert = pos in moe and path[0] == "mlp" and path[-1] in _EXPERT_LEAVES
-            return gather(dt, keep_dims=(0,) if expert else ())
+        groups: Dict[tuple, list] = {}
+        for name, g in grads.items():
+            groups.setdefault(self._layout[name].split_axes, []).append(torch.square(g.float()).sum())
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for axes in sorted(groups):  # the same groups, in the same order, on every rank
+            s = torch.stack(groups[axes]).sum()
+            for a in axes:
+                dist.all_reduce(s, group=self.mesh.get_group(a))
+            total = total + s
+        return total.sqrt()
 
-        for tree in self._periods:
-            yield nn.ModuleDict({
-                pos: Block(_map_paths(sub, lambda path, dt, pos=pos: take(pos, path, dt)))
-                for pos, sub in tree.items()
-            })
+    def _gather(self, name: str, sum_axes: tuple) -> torch.Tensor:
+        return gather_on_use(self._local[name], self.mesh, self._layout[name], sum_axes)
 
     def cache_periods(self, caches: Dict):
         """Each period's caches gathered over every axis but the batch's;
@@ -424,16 +613,39 @@ class ShardedLM:
                 dt.to_local().copy_(back.redistribute(dt.device_mesh, dt.placements).to_local())
 
 
-def _nested(blk: Block) -> Dict:
-    """A block's parameters as the reference's nested tree."""
-    out: Dict = {}
-    for name, t in blk.named_parameters():
-        *keys, leaf = name.split(".")
-        node = out
-        for k in keys:
-            node = node.setdefault(k, {})
-        node[leaf] = t
-    return out
+class _View:
+    """A ``ShardedLM`` as the model code reads a ``DecoderLM``, for one
+    forward: ``embed``, ``head`` and ``final_norm`` gathered once, and
+    ``layers`` yielding each period as a ``_Period``, which gathers a
+    position's leaves when the period code asks for it."""
+
+    def __init__(self, lm: ShardedLM, sum_axes: tuple):
+        self.cfg, self.device, self.cache_periods = lm.cfg, lm.device, lm.cache_periods
+        self._lm, self._sum_axes = lm, sum_axes
+        for name in ("embed", "head", "final_norm"):
+            setattr(self, name, lm._gather(name, sum_axes) if name in lm._local else None)
+
+    @property
+    def layers(self):
+        for p in range(self.cfg.n_periods):
+            yield _Period(self._lm, p, self._sum_axes)
+
+
+class _Period:
+    """One period of a ``ShardedLM``: ``period["pos0"]`` gathers that
+    position's leaves anew on every call (a recompute gathers again)."""
+
+    def __init__(self, lm: ShardedLM, p: int, sum_axes: tuple):
+        self._lm, self._p, self._sum_axes = lm, p, sum_axes
+
+    def __getitem__(self, pos: str):
+        tree: Dict = {}
+        for path, name in self._lm._positions[self._p][pos]:
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = self._lm._gather(name, self._sum_axes)
+        return types.SimpleNamespace(**tree)
 
 
 def _lookup(tree: Dict, path: Tuple[str, ...]):

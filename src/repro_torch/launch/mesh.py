@@ -8,12 +8,31 @@ one).  Code that only needs the mesh's sizes reads them by axis name
 (``mesh_sizes``), so a stand-in with a ``shape`` dict and ``axis_names``
 serves as well as a real mesh.
 
-``make_production_mesh`` waits for the launch tooling (ROADMAP.md queue A).
+``make_production_mesh`` gives the reference's production layouts over the
+current group; the dry-run (``launch/dryrun.py``) builds them over a fake
+group of one process.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production layouts over the ranks of the current
+    group (256 or 512 of them): ``(data 16, model 16)``, or ``(pod 2, data
+    16, model 16)``, with the reference's axis names, so a cell of either
+    package's dry-run names the same layout.
+
+    On H100s a model axis of 16 spans two 8-GPU NVLink nodes: the roofline's
+    one link rate (``HardwareSpec.ici_bw``) does not model the link between
+    them, nor the one between pods (the reference has no such term either).
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def make_smoke_mesh(n_data: int = 1, n_model: int = 1, device_type: str = "cuda"):

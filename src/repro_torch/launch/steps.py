@@ -5,16 +5,19 @@ spec and ``auto_microbatches``).  Each builder closes over the config (and
 the sharding rules) and returns a function of the model and tensors only.
 
 With ``rules`` (over a ``DeviceMesh`` of the current process group) the
-serving steps run SPMD, one process a rank.  Each takes the global batch
-and keeps the slice ``input_shardings`` gives its mesh coordinate (every
-rank the whole batch where it divides no data axis, as
-``make_mesh_context`` says); ``params`` is a ``ShardedLM``, which gathers
-each period's parameters on use and leaves the MoE experts split over
-``model``; the decode state follows ``state_shardings``
-(``sharding.shard_state``).  The steps return this rank's slice of their
-outputs.  Only the MoE experts split work over ``model``: the other layers
-run on gathered weights, the same on every rank of a model group.
-Sharded training is ROADMAP.md queue A's next item.
+steps run SPMD, one process a rank.  Each takes the global batch and keeps
+the slice ``input_shardings`` gives its mesh coordinate (every rank the
+whole batch where it divides no data axis, as ``make_mesh_context`` says);
+``params`` is a ``ShardedLM``, which gathers each period's parameters on use
+and leaves the MoE experts split over ``model``; the decode state follows
+``state_shardings`` (``sharding.shard_state``).  The serving steps return
+this rank's slice of their outputs; the train step reduces each gradient
+back to its shard (``sharding._GatherOnUse``), updates the shards and
+returns the loss of the global batch (each rank's loss divided by the
+global label count, so masked labels weigh as in the reference).  Only the MoE experts split work over
+``model``: the other layers run on gathered weights, the same on every rank
+of a model group (tensor-parallel compute is ROADMAP.md queue A's next
+item).
 """
 from __future__ import annotations
 
@@ -26,11 +29,13 @@ from repro_torch.distributed.sharding import (
     P,
     ShardingRules,
     _greedy_batch_axes,
+    _sum_axes,
     from_local,
     input_shardings,
     local_part,
     shard_state,
 )
+from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.moe import MeshContext
@@ -91,28 +96,63 @@ def _local_batch(rules: ShardingRules, cfg: ArchConfig, batch: Dict) -> Dict:
     return {k: local_part(v, specs[k], rules.mesh) for k, v in batch.items()}
 
 
+def _sum_over(t: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of the mesh axes ``axes``."""
+    import torch.distributed as dist
+
+    t = t.clone()
+    for a in axes:
+        dist.all_reduce(t, group=mesh.get_group(a))
+    return t
+
+
 def loss_and_grads(
-    params: M.DecoderLM,
+    params,
     cfg: ArchConfig,
     batch: Dict[str, torch.Tensor],
     remat_policy: str = "minimal",
     microbatches: int = 1,
+    rules: Optional[ShardingRules] = None,
 ):
     """``jax.value_and_grad(M.train_loss)`` over the batch: (loss, grads by
-    parameter name).  ``microbatches`` > 1 accumulates the gradients in f32
-    over slices of the batch and averages them with the losses, as the
-    reference's scan does; with one microbatch the gradients stay in the
-    parameters' dtype."""
+    parameter name).  ``microbatches`` > 1 takes the reference's slices of
+    the batch, accumulates the gradients in f32 and averages them with the
+    losses, as the reference's scan does; with one microbatch the gradients
+    stay in the parameters' dtype.
+
+    With ``rules``, ``params`` is a ``ShardedLM`` and ``batch`` the global
+    batch: each microbatch is the reference's slice of it, of which this
+    rank takes its rows, and its loss on this rank is the masked sum over
+    those rows divided by the label count of the whole microbatch (read
+    from the global labels, which every rank holds), so the ranks' losses
+    sum to the reference's loss whatever labels are masked where.  The
+    gradients are this rank's shards', summed over the batch axes
+    (``sharding._GatherOnUse``); the loss is the global one, on every
+    rank."""
     named = list(params.named_parameters())
+    B = next(iter(batch.values())).shape[0]
+    ctx = make_mesh_context(rules, cfg, B)
+    axes = () if rules is None else _sum_axes(rules.mesh, _fitting_batch_axes(rules, B))
+    specs = None if rules is None else input_shardings(rules, cfg, batch)
+
+    def loss_of(mb):
+        if rules is None:
+            return M.train_loss(params, cfg, mb, remat_policy)
+        local = {k: local_part(v, specs[k], rules.mesh) for k, v in mb.items()}
+        count = M.label_count(mb["labels"]).to(params.device)
+        return M.train_loss(params.view(axes), cfg, local, remat_policy, ctx, count)
+
+    def total(loss):
+        return loss if not axes else _sum_over(loss, rules.mesh, axes)
+
     if microbatches == 1:
-        loss = M.train_loss(params, cfg, batch, remat_policy)
+        loss = loss_of(batch)
         loss.backward()
-        return loss.detach(), {n: p.grad for n, p in named}
+        return total(loss.detach()), {n: p.grad for n, p in named}
     grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in named}
     loss = torch.zeros((), dtype=torch.float32, device=params.device)
     for i in range(microbatches):
-        mb = {k: x.chunk(microbatches)[i] for k, x in batch.items()}
-        loss_i = M.train_loss(params, cfg, mb, remat_policy)
+        loss_i = loss_of({k: x.chunk(microbatches)[i] for k, x in batch.items()})
         loss_i.backward()
         for n, p in named:
             grads[n].add_(p.grad)
@@ -120,7 +160,7 @@ def loss_and_grads(
         loss = loss + loss_i.detach()
     for g in grads.values():
         g.div_(microbatches)
-    return loss / microbatches, grads
+    return total(loss) / microbatches, grads
 
 
 def make_train_step(
@@ -134,17 +174,15 @@ def make_train_step(
     """fwd+bwd+AdamW: ``loss_and_grads`` then ``adamw_update``.  The step
     updates the model and the optimizer state in place and returns
     ``(loss, params, opt_state)``, loss a 0-dim f32 tensor on the model's
-    device.  One process only: rules over a mesh of more than one rank
-    raise."""
-    if rules is not None and rules.fsdp_size * rules.model_size > 1:
-        raise NotImplementedError(
-            "make_train_step over a mesh of more than one rank: sharded training (the "
-            "gradients of gathered leaves reduced back to their shards) is ROADMAP.md "
-            "queue A's next item"
-        )
+    device.  With ``rules``, ``params`` is a ``ShardedLM`` (trainable) and
+    ``opt_state`` its ``adamw_init``: the step takes the global batch, of
+    which each rank runs its rows of each microbatch, updates its shards and
+    returns the loss of the global batch, the same on every rank.
+    ``global_batch`` is the reference's argument; the step reads the batch
+    size from the batch."""
 
-    def train_step(params: M.DecoderLM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
-        loss, grads = loss_and_grads(params, cfg, batch, remat_policy, microbatches)
+    def train_step(params, opt_state: Dict, batch: Dict[str, torch.Tensor]):
+        loss, grads = loss_and_grads(params, cfg, batch, remat_policy, microbatches, rules)
         params, opt_state = adamw_update(params, grads, opt_state, settings)
         for p in params.parameters():
             p.grad = None
@@ -166,7 +204,7 @@ def make_prefill_step(
     def prefill_step(params: M.DecoderLM, batch: Dict[str, torch.Tensor]):
         if rules is None:
             return M.prefill(params, cfg, batch)
-        logits, state = M.prefill(params, cfg, _local_batch(rules, cfg, batch), ctx)
+        logits, state = M.prefill(params.view(), cfg, _local_batch(rules, cfg, batch), ctx)
         return logits, shard_state(rules, cfg, state, global_batch)
 
     return prefill_step
@@ -187,7 +225,7 @@ def make_decode_step(
             return M.decode_step(params, cfg, tokens, state, cache_pos)
         caches, kv_len = state
         logits, (caches, new_len) = M.decode_step(
-            params, cfg, _local_batch(rules, cfg, {"tokens": tokens})["tokens"],
+            params.view(), cfg, _local_batch(rules, cfg, {"tokens": tokens})["tokens"],
             (caches, kv_len.to_local()), cache_pos, ctx)
         return logits, (caches, from_local(new_len, rules.mesh, kv_len.placements, kv_len.shape))
 
@@ -206,8 +244,9 @@ def make_encoder_step(
     def encode_step(params: M.DecoderLM, batch: Dict[str, torch.Tensor]):
         if rules is not None:
             batch = _local_batch(rules, cfg, batch)
-        hidden, _ = M.forward(params, cfg, batch, ctx, remat=False)
-        return M.lm_head(params, cfg, hidden)
+        model = params.view()
+        hidden, _ = M.forward(model, cfg, batch, ctx, remat=False)
+        return M.lm_head(model, cfg, hidden)
 
     return encode_step
 

@@ -25,8 +25,8 @@ attention position, ``state`` (n_periods, B, H, P, N) and ``conv``
 A period position's channel mixer is a dense MLP or an MoE block
 (``models/moe.py``), as ``cfg.mlp_pattern`` says.  ``ctx`` (a
 ``moe.MeshContext``, None for one process) reaches ``moe_block`` as in the
-reference; under it ``params`` may be a ``distributed.sharding.ShardedLM``,
-which gathers each period's parameters on use.  The
+reference; under it ``params`` may be a ``distributed.sharding.ShardedLM``'s
+``view()``, which gathers each period's parameters on use.  The
 frontends are the reference's stubs: a ``"patch"`` config (the VLM) writes
 precomputed patch embeddings over its first ``n_frontend_tokens`` token
 embeddings, a ``"frame"`` config (the audio encoder) takes precomputed
@@ -207,6 +207,31 @@ class DecoderLM(nn.Module):
         decode step's in-place writes land in ``caches``."""
         for p in range(len(self.layers)):
             yield {pos: {name: t[p] for name, t in sub.items()} for pos, sub in caches.items()}
+
+    # What the steps, the optimizer and the checkpoint ask of a model; a
+    # ``distributed.sharding.ShardedLM`` answers the same for its shards.
+    def view(self, sum_axes=()) -> "DecoderLM":
+        """What the model code reads: the model itself."""
+        return self
+
+    def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of ``grads`` (by parameter name)."""
+        return global_norm(grads.values())
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf laid out like parameter ``name``: ``t`` itself."""
+        return t
+
+    def slices(self, name: str):
+        """The index of parameter ``name`` this model holds: all of it."""
+        return ...
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, taken in f32, as the
+    reference writes it.  (``torch.linalg.vector_norm`` in f32 sums naively
+    on the CPU: 1.6e-3 relative error over 3e7 elements.)"""
+    return torch.stack([torch.square(g.float()).sum() for g in grads]).sum().sqrt()
 
 
 def _take(tree: Dict, p: int) -> Dict:
@@ -408,6 +433,17 @@ def _ce_chunk(w: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor):
     return ((lse - gold) * mask).sum(), mask.sum()
 
 
+def _counted(S: int, chunk: int) -> int:
+    """How many leading positions ``chunked_ce_loss`` counts: whole chunks."""
+    chunk = min(chunk, S)
+    return (S // chunk) * chunk
+
+
+def label_count(labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """The f32 count of labels >= 0 that ``chunked_ce_loss`` divides by."""
+    return (labels[:, : _counted(labels.shape[1], chunk)] >= 0).sum(dtype=torch.float32)
+
+
 def chunked_ce_loss(
     params: DecoderLM,
     cfg: ArchConfig,
@@ -415,13 +451,16 @@ def chunked_ce_loss(
     labels: torch.Tensor,
     *,
     chunk: int = 512,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Cross entropy over sequence chunks, each checkpointed, so the (B, S, V)
     logits tensor never exists for more than ``chunk`` positions at a time.
 
     labels < 0 are masked out.  As in the reference, only the first
     ``(S // chunk) * chunk`` positions count: the tail past the last whole
-    chunk is dropped.
+    chunk is dropped.  The masked sum is divided by ``count`` where given
+    (sharded training: the ``label_count`` of the global batch, of which
+    ``labels`` are this rank's rows), else by this batch's own.
     """
     S = hidden.shape[1]
     w = params.embed.T if cfg.tie_embeddings else params.head
@@ -433,7 +472,7 @@ def chunked_ce_loss(
         sl = slice(c * chunk, (c + 1) * chunk)
         t, n = checkpointed(_ce_chunk, w, hidden[:, sl], labels[:, sl])
         tot, cnt = tot + t, cnt + n
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot / torch.clamp_min(cnt if count is None else count, 1.0)
 
 
 def train_loss(
@@ -442,8 +481,10 @@ def train_loss(
     batch: Dict,
     remat_policy: Optional[str] = "minimal",
     ctx: Optional[MeshContext] = None,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The training loss: ``forward`` with remat, then ``chunked_ce_loss``.
+    """The training loss: ``forward`` with remat, then ``chunked_ce_loss``
+    (divided by ``count`` where given).
 
     Training never reaches a hand kernel: the reference trains without its
     Pallas kernels (``use_pallas`` defaults to False and they have no
@@ -452,7 +493,7 @@ def train_loss(
     """
     cfg = dataclasses.replace(cfg, use_kernels=False)
     hidden, _ = forward(params, cfg, batch, ctx, remat=True, remat_policy=remat_policy)
-    return chunked_ce_loss(params, cfg, hidden, batch["labels"])
+    return chunked_ce_loss(params, cfg, hidden, batch["labels"], count=count)
 
 
 # ---------------------------------------------------------------------------

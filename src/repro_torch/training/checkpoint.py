@@ -21,6 +21,12 @@ Writes are ATOMIC (tmp dir + os.rename) so a preempted node never leaves a
 half-written checkpoint, and ``latest_step`` only believes a directory that
 contains a manifest.  ``AsyncCheckpointer.save`` copies the tensors to host
 memory synchronously, then writes on a worker thread.
+
+A ``ShardedLM`` and its sharded moments save to the same layout: every rank
+gathers each whole leaf in turn, rank 0 copies it to the host and writes,
+and the others wait at a barrier (``save_checkpoint`` only).  ``restore_checkpoint(like=(sharded, opt))``
+copies each rank's own slices, so a checkpoint crosses between one process
+and a mesh of ranks both ways.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import ShardedLM
 from repro_torch.weights import reference_key, stack_by_reference_key
 
 _BF16 = "bfloat16"
@@ -58,15 +65,25 @@ def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _flatten(params, opt_state) -> Tuple[Dict, Dict]:
-    """(arrays, dtypes) by reference key for a model and its optimizer state."""
+def _flatten(params, opt_state, keep: bool = True) -> Tuple[Dict, Dict]:
+    """(arrays, dtypes) by reference key for a model and its optimizer state.
+    Each leaf is made whole (``params.whole``: a ``ShardedLM`` gathers it, and
+    every rank of its group must call) and copied to the host before the
+    next, so the device never holds more than one whole leaf beyond the
+    model; with ``keep`` False (a rank that does not write) nothing is
+    copied to the host."""
     arrays: Dict[str, np.ndarray] = {}
     dtypes: Dict[str, str] = {}
 
     def put(prefix: str, named) -> None:
-        named = list(named)
-        kinds = {"/".join(reference_key(n)[0]): str(t.dtype).replace("torch.", "") for n, t in named}
-        for path, a in stack_by_reference_key(named, _host).items():
+        kinds, hosted = {}, []
+        for n, t in named:
+            kinds["/".join(reference_key(n)[0])] = str(t.dtype).replace("torch.", "")
+            whole = params.whole(n, t)
+            if keep:
+                hosted.append((n, _host(whole)))
+            del whole
+        for path, a in stack_by_reference_key(hosted, lambda a: a).items():
             key = "/".join(path)
             arrays[f"{prefix}/{key}"] = a
             dtypes[f"{prefix}/{key}"] = kinds[key]
@@ -74,8 +91,9 @@ def _flatten(params, opt_state) -> Tuple[Dict, Dict]:
     put("params", params.named_parameters())
     put("opt/m", opt_state["m"].items())
     put("opt/v", opt_state["v"].items())
-    arrays["opt/step"] = _host(opt_state["step"])
-    dtypes["opt/step"] = "int32"
+    if keep:
+        arrays["opt/step"] = _host(opt_state["step"])
+        dtypes["opt/step"] = "int32"
     return arrays, dtypes
 
 
@@ -112,9 +130,19 @@ def save_checkpoint(
     extra: Optional[dict] = None,
 ) -> str:
     """Synchronous atomic save of a ``DecoderLM`` and its optimizer state;
-    returns the checkpoint path."""
-    arrays, dtypes = _flatten(params, opt_state)
-    return _write(directory, step, arrays, dtypes, loader_state, extra)
+    returns the checkpoint path.  For a ``ShardedLM`` every rank of the
+    group calls it: rank 0 writes, and every rank returns once it has."""
+    if not isinstance(params, ShardedLM):
+        return _write(directory, step, *_flatten(params, opt_state), loader_state, extra)
+    import torch.distributed as dist
+
+    writes = dist.get_rank() == 0
+    arrays, dtypes = _flatten(params, opt_state, keep=writes)
+    path = str(pathlib.Path(directory) / f"step_{step:08d}")
+    if writes:
+        path = _write(directory, step, arrays, dtypes, loader_state, extra)
+    dist.barrier()
+    return path
 
 
 class AsyncCheckpointer:
@@ -140,6 +168,8 @@ class AsyncCheckpointer:
             raise err
 
     def save(self, step: int, params, opt_state, loader_state=None, extra=None):
+        if isinstance(params, ShardedLM):
+            raise TypeError("a ShardedLM saves through save_checkpoint (rank 0 writes)")
         self.wait()
         arrays, dtypes = _flatten(params, opt_state)
 
@@ -187,7 +217,8 @@ def restore_checkpoint(
     """Returns (params, opt_state, loader_state, extra).
 
     ``like`` = (model, opt_state): every parameter, moment and the step are
-    copied into them in place, by key path, and they are returned.  Without
+    copied into them in place, by key path, and they are returned; for a
+    ``ShardedLM``, each rank's slices of them.  Without
     it, params and opt_state are flat dicts of CPU tensors keyed by their
     paths under ``params/`` and ``opt/`` (stacked leaves stay stacked)."""
     step = step if step is not None else latest_step(directory)
@@ -205,11 +236,15 @@ def restore_checkpoint(
 
     if like is not None:
         model, opt = like
+
+        def mine(prefix: str, name: str) -> torch.Tensor:
+            return leaf(prefix, name)[model.slices(name)]
+
         for name, p in model.named_parameters():
-            p.copy_(leaf("params", name))
+            p.copy_(mine("params", name))
         for kind in ("m", "v"):
             for name, t in opt[kind].items():
-                t.copy_(leaf(f"opt/{kind}", name))
+                t.copy_(mine(f"opt/{kind}", name))
         opt["step"].copy_(arrays["opt/step"])
         params = model
     else:

@@ -12,15 +12,22 @@ the math allows, so no f32 copy of the whole tree ever exists.
 The optimizer state keeps the reference's keys ``m``, ``v`` and ``step``;
 ``m`` and ``v`` map each parameter name of the ``DecoderLM`` to its moment
 (``repro_torch.weights`` carries them to and from the reference's tree).
+
+On a ``distributed.sharding.ShardedLM`` (sharded training) the same code
+runs on each rank's shards: ``named_parameters`` yields the shards, so the
+moments have each leaf's own layout, as the reference's inherit each
+parameter's sharding; only the global norm needs the other ranks, and the
+model takes it (``grad_norm``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.models.model import DecoderLM
+from repro_torch.models.model import global_norm as _global_norm  # noqa: F401 (its name here)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,11 +49,14 @@ def decays(name: str, p: torch.Tensor) -> bool:
     """Whether the reference decays this parameter: it decays every leaf of
     rank > 1 in its tree, where a per-period parameter (``layers.{p}...``) is
     a slice of a leaf stacked over periods, one rank higher.  So the norm
-    scales inside the stack are decayed and ``final_norm`` is not."""
+    scales inside the stack are decayed and ``final_norm`` is not.  A shard
+    has its leaf's rank, so it gets its leaf's answer."""
     return p.ndim + (1 if name.startswith("layers.") else 0) > 1
 
 
-def adamw_init(params: DecoderLM, settings: OptSettings) -> Dict:
+def adamw_init(params, settings: OptSettings) -> Dict:
+    """Zero moments in ``moment_dtype`` for a ``DecoderLM`` or the shards of
+    a ``ShardedLM``, and step 0."""
     dt = getattr(torch, settings.moment_dtype)
     named = list(params.named_parameters())
     zeros = lambda: {n: torch.zeros(p.shape, dtype=dt, device=p.device) for n, p in named}  # noqa: E731
@@ -71,22 +81,16 @@ def opt_state_shapes(param_shapes: Dict, settings: OptSettings) -> Dict:
     }
 
 
-def _global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, taken in f32, as the
-    reference writes it.  (``torch.linalg.vector_norm`` in f32 sums naively
-    on the CPU: 1.6e-3 relative error over 3e7 elements.)"""
-    return torch.stack([torch.square(g.float()).sum() for g in grads]).sum().sqrt()
-
-
 @torch.no_grad()
 def adamw_update(
-    params: DecoderLM, grads: Dict[str, torch.Tensor], opt_state: Dict, settings: OptSettings
+    params, grads: Dict[str, torch.Tensor], opt_state: Dict, settings: OptSettings
 ) -> Tuple[DecoderLM, Dict]:
-    """One AdamW step, updating ``params`` and the moments in place.  Math in
-    f32; parameters and moments are stored back in their dtypes.  ``grads``
-    maps each parameter name to its gradient (any float dtype)."""
+    """One AdamW step, updating ``params`` (a ``DecoderLM`` or a
+    ``ShardedLM``) and the moments in place.  Math in f32; parameters and
+    moments are stored back in their dtypes.  ``grads`` maps each parameter
+    name to its gradient (any float dtype), a shard's for a ``ShardedLM``."""
     step = opt_state["step"] + 1
-    gnorm = _global_norm(grads.values())
+    gnorm = params.grad_norm(grads)
     clip = torch.clamp_max(settings.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     b1, b2, wd = settings.beta1, settings.beta2, settings.weight_decay
     c1 = 1.0 - torch.pow(b1, step.float())

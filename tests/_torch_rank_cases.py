@@ -181,7 +181,7 @@ def steps_rank(rank: int, world: int):
     """Every serving case through the rules-aware steps on (2, 2): greedy
     tokens and logits (gathered to the global batch), each decode cache
     shard's shape against ``state_shardings``; hubert's encoder logits; and
-    what ``make_train_step`` with the rules raises."""
+    the loss of one ``make_train_step`` with the rules (phi3.5-moe, batch 2)."""
     import torch
 
     from repro_torch import configs
@@ -194,7 +194,7 @@ def steps_rank(rank: int, world: int):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import DecoderLM, init_decode_state
     from repro_torch.serving.engine import grow_kv
-    from repro_torch.training.optimizer import OptSettings
+    from repro_torch.training.optimizer import OptSettings, adamw_init
 
     mesh, rules = _mesh_and_rules(2, 2)
     out = {}
@@ -238,9 +238,202 @@ def steps_rank(rank: int, world: int):
     model = ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules)
     enc = make_encoder_step(cfg, rules, ENCODE_B)(model, {"frame_embeds": torch.from_numpy(encode_frames(cfg))})
     out[f"{HUBERT}|logits"] = rows(enc, ENCODE_B).numpy()
-    try:
-        make_train_step(serve_cfg(configs, PHI), OptSettings(), rules, 2)
-        out["train_raises"] = np.array("")
-    except NotImplementedError as e:
-        out["train_raises"] = np.array(str(e))
+    cfg = serve_cfg(configs, PHI)
+    model = ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules, trainable=True)
+    batch = {k: torch.from_numpy(v).long() for k, v in train_batch(cfg, 2).items()}
+    loss, _, _ = make_train_step(cfg, OptSettings(), rules, 2)(model, adamw_init(model, OptSettings()), batch)
+    out["train_loss"] = loss.numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded training on (data 2, model 2): reduced danube, phi3.5-moe (at the
+# capacity that drops no token) and mamba2 in f32, at a global batch of 4
+# (split over data) and of 1 (which divides no data axis, so every rank
+# takes the whole batch).  Weights from DecoderLM.from_config's seed.
+# ---------------------------------------------------------------------------
+MAMBA = "mamba2-130m"
+TRAIN_ARCHS = [DANUBE, PHI, MAMBA]
+TRAIN_BATCHES = [4, 1]
+TRAIN_S, TRAIN_STEPS = 32, 2
+TRAIN_CLIP = 0.05  # under every case's gradient norm (the tests check), so the clip binds
+TRAIN_MESH = (2, 2)
+TRAIN_MESH_AXES = ("data", "model")
+JOINT_SPEC = (("data", "model"), None)  # dim 0 split over both axes, data major
+
+
+def joint_leaf() -> np.ndarray:
+    return np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
+
+
+def train_key(arch: str, B: int, run: str = "default") -> str:
+    return f"{arch}|{B}|{run}"
+
+
+def train_batch(cfg, B: int) -> dict:
+    """int32 tokens and labels (every label counts)."""
+    rng = np.random.default_rng(100 + B)
+    return {k: rng.integers(0, cfg.vocab, (B, TRAIN_S)).astype(np.int32) for k in ("tokens", "labels")}
+
+
+# runs of one step at batch 4 besides the default: (run, microbatches, masked)
+TRAIN_RUNS = {"clip": (1, False), "mb2": (2, False), "mask": (1, True), "mask_mb2": (2, True)}
+
+
+def masked_train_batch(cfg) -> dict:
+    """``train_batch(cfg, 4)`` with labels masked (-1) unevenly across the
+    rows, so the two data ranks (rows 0-1 and 2-3) and the two microbatches
+    hold different counts: 24 of row 0's 32 labels, every other one of
+    row 1's, none of row 2's and the last 4 of row 3's."""
+    batch = train_batch(cfg, 4)
+    labels = batch["labels"]
+    labels[0, :24] = -1
+    labels[1, ::2] = -1
+    labels[3, -4:] = -1
+    return batch
+
+
+def train_inputs(cfg, run: str) -> dict:
+    """The batch of a batch-4 run."""
+    return masked_train_batch(cfg) if TRAIN_RUNS.get(run, (1, False))[1] else train_batch(cfg, 4)
+
+
+def train_settings(run: str, OptSettings):
+    return OptSettings(grad_clip=TRAIN_CLIP) if run == "clip" else OptSettings()
+
+
+def train_rank(rank: int, world: int, ckpt_in: str, ckpt_out: str):
+    """Every sharded-training case on (2, 2): for each arch and global batch,
+    the loss of each of ``TRAIN_STEPS`` steps and every shard after each; at
+    batch 4 also one step of each of ``TRAIN_RUNS`` (a binding clip, 2
+    microbatches, masked labels with 1 and 2 microbatches); each shard's
+    reduced gradient of the default and masked runs and the global gradient
+    norm; a leaf whose dim 0 is split over both axes, gathered, and its
+    gradient under a cotangent of ``rank + 1`` times the leaf; every gathered gradient before its reduction (``gather_on_use``
+    is spied on), one forward and backward of the first step; a checkpoint
+    of the trained shards written to ``ckpt_out/<arch>``, with the bytes of
+    whole leaves alive on the device at once while it saves and the bytes
+    each rank copies to the host; and the shards and moments restored from
+    the single-process checkpoint in ``ckpt_in/<arch>``."""
+    import weakref
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import OptSettings, adamw_init
+
+    mesh, rules = _mesh_and_rules(*TRAIN_MESH)
+    out = {"coord": np.array(mesh.get_coordinate())}
+
+    def fresh(cfg):
+        return sharding.ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules, trainable=True)
+
+    def put(key, model):
+        for n, p in model.named_parameters():
+            out[f"{key}|{n}"] = p.detach().numpy().copy()
+
+    def tensors(batch):
+        return {k: torch.from_numpy(v).long() for k, v in batch.items()}
+
+    def save(arch, n_steps, model, opt):
+        """``save_checkpoint``, watching the whole leaves it gathers (any
+        output of ``_gathered`` that is not the shard itself) and the host
+        copies it makes."""
+        live, peak, hosted = [], [0], [0]
+        gathered, host = sharding._gathered, checkpoint._host
+
+        def watched(local, mesh_, layout):
+            t = gathered(local, mesh_, layout)
+            if t is not local:
+                live.append(weakref.ref(t))
+                live[:] = [r for r in live if r() is not None]
+                peak[0] = max(peak[0], sum(r().numel() * r().element_size() for r in live))
+            return t
+
+        def hosting(t):
+            a = host(t)
+            hosted[0] += a.nbytes
+            return a
+
+        sharding._gathered, checkpoint._host = watched, hosting
+        try:
+            checkpoint.save_checkpoint(f"{ckpt_out}/{arch}", n_steps, model, opt)
+        finally:
+            sharding._gathered, checkpoint._host = gathered, host
+        out[f"{arch}|saved|peak_whole_bytes"] = np.array(peak[0])
+        out[f"{arch}|saved|host_bytes"] = np.array(hosted[0])
+
+    # a dim split over both axes, as (pod, data) split one on the multi-pod
+    # mesh: gathered whole, and its gradient summed over data only
+    whole = torch.from_numpy(joint_leaf())
+    spec = JOINT_SPEC
+    layout = sharding._Layout(spec, tuple(sharding.placements(spec, mesh)), tuple(whole.shape),
+                              whole.dtype, (), tuple(TRAIN_MESH_AXES))
+    local = sharding.local_part(whole, spec, mesh).clone().requires_grad_(True)
+    gathered = sharding.gather_on_use(local, mesh, layout, ("data",))
+    (gathered * whole * (rank + 1)).sum().backward()
+    out["joint|gathered"] = gathered.detach().numpy()
+    out["joint|grad"] = local.grad.numpy()
+
+    for arch in TRAIN_ARCHS:
+        cfg = serve_cfg(configs, arch)
+        for B in TRAIN_BATCHES:
+            batch = tensors(train_batch(cfg, B))
+            runs = [("default", TRAIN_STEPS, 1)]
+            if B == 4:
+                runs += [(run, 1, mb) for run, (mb, _) in TRAIN_RUNS.items()]
+            for run, n_steps, mb in runs:
+                settings = train_settings(run, OptSettings)
+                model = fresh(cfg)
+                opt = adamw_init(model, settings)
+                step = make_train_step(cfg, settings, rules, B, microbatches=mb)
+                inputs = batch if run == "default" else tensors(train_inputs(cfg, run))
+                for s in range(n_steps):
+                    loss, model, opt = step(model, opt, inputs)
+                    out[f"{train_key(arch, B, run)}|loss{s}"] = loss.numpy()
+                    put(f"{train_key(arch, B, run)}|step{s}", model)
+                if run == "default" and B == 4:
+                    save(arch, n_steps, model, opt)
+                    for kind in ("m", "v"):
+                        for n, t in opt[kind].items():
+                            out[f"{arch}|saved|{kind}|{n}"] = t.numpy().copy()
+                if run.startswith("mask"):
+                    _, grads = loss_and_grads(fresh(cfg), cfg, inputs, microbatches=mb, rules=rules)
+                    for n, g in grads.items():
+                        out[f"{train_key(arch, B, run)}|grad|{n}"] = g.numpy()
+            # the gradient before its reduction, and the global norm
+            model = fresh(cfg)
+            seen = {}
+            plain = sharding.gather_on_use
+
+            def spy(local, mesh_, layout, sum_axes):
+                t = plain(local, mesh_, layout, sum_axes)
+                if t.requires_grad and not layout.keep:
+                    t.retain_grad()
+                    seen.setdefault(id(layout), t)  # the forward's, not a recompute's
+                return t
+
+            sharding.gather_on_use = spy
+            try:
+                _, grads = loss_and_grads(model, cfg, batch, rules=rules)
+            finally:
+                sharding.gather_on_use = plain
+            layouts = {id(lay): n for n, lay in model._layout.items()}
+            for lid, t in seen.items():
+                out[f"{train_key(arch, B)}|gathered_grad|{layouts[lid]}"] = t.grad.numpy()
+            out[f"{train_key(arch, B)}|grad_norm"] = model.grad_norm(grads).numpy()
+            for n, g in grads.items():
+                out[f"{train_key(arch, B)}|grad|{n}"] = g.numpy()
+        model = fresh(cfg)
+        opt = adamw_init(model, OptSettings())
+        checkpoint.restore_checkpoint(f"{ckpt_in}/{arch}", like=(model, opt))
+        put(f"{arch}|restored|params", model)
+        for kind in ("m", "v"):
+            for n, t in opt[kind].items():
+                out[f"{arch}|restored|{kind}|{n}"] = t.numpy().copy()
+        out[f"{arch}|restored|step"] = opt["step"].numpy()
     return out

@@ -219,14 +219,20 @@ def test_hardware_spec_is_the_h100():
 
 
 def test_train_step_with_rules_over_ranks_raises():
-    cfg = tconfigs.reduce_for_smoke(tconfigs.get("phi3.5-moe-42b-a6.6b"))
-    _, rules = _rules("2x2")
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        TSt.make_train_step(cfg, OptSettings(), rules, 4)
+    """The name is kept from when the sharded train step raised.  It now
+    builds over ranks, and ``step_for_cell`` returns it as a step that takes
+    the parameters and the optimizer state, with the reference's
+    microbatches (tests/test_torch_sharded_train.py runs it)."""
+    arch = "phi3.5-moe-42b-a6.6b"
+    rcfg = rconfigs.reduce_for_smoke(rconfigs.get(arch))
+    cfg = tconfigs.reduce_for_smoke(tconfigs.get(arch))
+    rrules, rules = _rules("2x2")
+    assert callable(TSt.make_train_step(cfg, OptSettings(), rules, 4))
     shape = dataclasses.replace(applicable_shapes(cfg)[0], global_batch=4, seq_len=32)
     assert shape.kind == "train"
-    with pytest.raises(NotImplementedError, match="queue A"):
-        TSt.step_for_cell(cfg, shape, rules)
+    _, r_takes, r_mb = RSt.step_for_cell(rcfg, shape, rrules)
+    _, takes, mb = TSt.step_for_cell(cfg, shape, rules)
+    assert (takes, mb) == (r_takes, r_mb) == (True, 1)
 
 
 # ---------------------------------------------------------------------------
