@@ -84,7 +84,22 @@ its check does not hold:
    1 layer on data 1 x model 2, B 1 x S 256), each rank's loss, global grad
    norm, gradient shards and updated shards against its slices of the
    one-process step on the card at 2e-3, with the c10d collectives that
-   gather the shards and reduce the gradients (``gather``, ``reduce``);
+   gather the shards and reduce the gradients (``gather``, ``reduce``),
+   and danube cut to 2 layers again on data 1 x model 2, its attention
+   heads and d_ff split over the two ranks (the tensor-parallel backward);
+   after ``train_sharded``, ``tp_serve``: tensor-parallel serving on two
+   gloo ranks of the card (mesh data 1 x model 2, each rank on half of the
+   heads and d_ff): (a) danube f32 at full width cut to 2 layers,
+   ``make_prefill_step`` on 2 x 512 then 8 greedy ``make_decode_step``
+   steps, each rank's logits within 2e-3 of one process, its tokens equal,
+   exactly 2 CUDA-core flash launches a prefill at q (2, 512, 16, 120) and
+   k/v (2, 512, 4, 120); (b) danube bf16 at full width and depth, 4 x 1024
+   then 8 steps, exactly 24 tensor-core flash launches a prefill at 16 / 4
+   heads, the kernel against its plain version on its inputs at 2e-2, each
+   rank's peak memory and wall ms; (c) one jamba SSM layer at full width,
+   B 1 x S 8192, the SSD scan on 128 heads a rank, held against its plain
+   version on its inputs, and the f32 layer within 2e-3 of one process
+   (``tp_serve`` lines; the kernel sweeps have rows at a rank's shapes);
    the lm-100m example at
    its defaults (300 f32 steps), whose loss must fall; and a checkpoint
    round trip at lm-test size, bit for bit;
@@ -171,6 +186,16 @@ ENCODER_RAGGED_L = 1000
 # 256 heads, conv dim 16640, 0.407 B parameters), B 1 x S 8192, chunk 256:
 # the whole model does not fit one card (one 8-layer period is 88.1 GB in bf16)
 JAMBA_SSM_B, JAMBA_SSM_S = 1, 8192
+# tensor-parallel serving on two gloo ranks of the card, mesh data 1 x model
+# 2 (tp_serve): (a) danube f32 at full width cut to 2 layers, 2 x 512 then 8
+# greedy steps, held against one process; (b) danube bf16 at full width and
+# depth, 4 x 1024 then 8 steps; (c) the jamba SSM layer above, on 128 heads
+# a rank
+TP_ARCH = "h2o-danube-3-4b"
+TP_F32_LAYERS, TP_F32_B, TP_F32_S = 2, 2, 512
+TP_BF16_B, TP_BF16_S = 4, 1024
+TP_NEW = 8
+TP_RANKS = 2
 CHECK_STEPS = 8
 # prefill against step-by-step decode at a capacity that drops no token:
 # decode routes B tokens a step, prefill B*S (tests/test_serving.py:19)
@@ -302,6 +327,9 @@ KERNEL_SHAPES = [
     ("hubert encode (main path)", ENCODER.serve_b, ENCODER.serve_l, 16, 16, 80, torch.bfloat16,
      False, None),
     ("hubert heads, ragged S, f32", 2, ENCODER_RAGGED_L, 16, 16, 80, torch.float32, False, None),
+    # a rank's heads in tp_serve (model 2): danube's 32 / 8 heads halved
+    ("tp_serve (b): a rank's prefill", TP_BF16_B, TP_BF16_S, 16, 4, 120, torch.bfloat16, True, 4096),
+    ("tp_serve (a): a rank's prefill, f32", TP_F32_B, TP_F32_S, 16, 4, 120, torch.float32, True, 4096),
 ]
 
 
@@ -393,6 +421,8 @@ SSD_SHAPES = [
     # 128, chunk 256 (two sub-tiles of 128 in the kernels)
     ("jamba width, chunk 256", 1, 8192, 256, 64, 1, 128, 256, torch.bfloat16, True),
     ("jamba width, chunk 256, f32", 1, 8192, 256, 64, 1, 128, 256, torch.float32, False),
+    # a rank's heads in tp_serve (c) (model 2): jamba's 256 halved
+    ("tp_serve (c): a rank's jamba heads, chunk 256", 1, 8192, 128, 64, 1, 128, 256, torch.bfloat16, True),
 ]
 NO_LIBRARY_SSD = "none: no single PyTorch call computes the SSD scan"
 
@@ -1276,7 +1306,8 @@ def moe_sharded_rank(rank: int, world: int) -> dict:
     batch; y in f32 and bf16 and the wall ms of each."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_smoke_mesh
-    from repro_torch.models.moe import MeshContext, moe_block
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.parallel import MeshContext
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = configs.get(SHARDED_ARCH)
@@ -1357,10 +1388,17 @@ def moe_sharded_check(configs, kernels) -> dict:
 # ---------------------------------------------------------------------------
 # (arch, layers, (data, model), global batch, seq), all on one group of two
 # gloo ranks: danube cut to 2 layers with the batch split over data (one row
-# a rank), phi3.5-moe cut to 1 layer (train_check's size, about 25 GB of f32
-# state in one process) with its 16 experts split over model (8 a rank)
+# a rank) and with its heads and d_ff split over model (tensor-parallel
+# attention and MLP, forward and backward), phi3.5-moe cut to 1 layer
+# (train_check's size, about 25 GB of f32 state in one process) with its 16
+# experts split over model (8 a rank) and its attention heads too
 SHARDED_TRAIN_CASES = (("h2o-danube-3-4b", 2, (2, 1), 2, 512),
-                       ("phi3.5-moe-42b-a6.6b", 1, (1, 2), 1, 256))
+                       ("phi3.5-moe-42b-a6.6b", 1, (1, 2), 1, 256),
+                       ("h2o-danube-3-4b", 2, (1, 2), 2, 512))
+
+
+def sharded_case_key(arch: str, mesh) -> str:
+    return f"{arch}|{mesh[0]}x{mesh[1]}"
 
 
 def sharded_train_cfg(configs, arch: str, layers: int):
@@ -1411,6 +1449,7 @@ def train_sharded_rank(rank: int, world: int) -> dict:
     for arch, layers, (n_data, n_model), B, S in SHARDED_TRAIN_CASES:
         cfg = sharded_train_cfg(configs, arch, layers)
         rules = ShardingRules(make_smoke_mesh(n_data, n_model, device_type="cuda"), fsdp_axes=("data",))
+        key = sharded_case_key(arch, (n_data, n_model))
         model = ShardedLM(DecoderLM.from_config(cfg, seed=0, device="cuda"), rules, trainable=True)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1422,14 +1461,14 @@ def train_sharded_rank(rank: int, world: int) -> dict:
         t0 = time.monotonic()
         with StepSpy(lambda m, g: m.grad_norm(g)) as spy:
             loss, model, opt = step(model, opt, batch)
-        out[f"{arch}|loss"] = loss.cpu().numpy()
-        out[f"{arch}|step_ms"] = np.array((time.monotonic() - t0) * 1e3)
-        out[f"{arch}|peak_gb"] = np.array(torch.cuda.max_memory_allocated() / 1e9)
-        out[f"{arch}|grad_norm"] = np.array(spy.grad_norm)
+        out[f"{key}|loss"] = loss.cpu().numpy()
+        out[f"{key}|step_ms"] = np.array((time.monotonic() - t0) * 1e3)
+        out[f"{key}|peak_gb"] = np.array(torch.cuda.max_memory_allocated() / 1e9)
+        out[f"{key}|grad_norm"] = np.array(spy.grad_norm)
         for n, p in model.named_parameters():
-            out[f"{arch}|param|{n}"] = p.detach().float().cpu().numpy()
-            out[f"{arch}|grad|{n}"] = spy.grads[n].numpy()
-            out[f"{arch}|slice|{n}"] = np.array([(s.start, s.stop) for s in model.slices(n)])
+            out[f"{key}|param|{n}"] = p.detach().float().cpu().numpy()
+            out[f"{key}|grad|{n}"] = spy.grads[n].numpy()
+            out[f"{key}|slice|{n}"] = np.array([(s.start, s.stop) for s in model.slices(n)])
         del model, opt, spy, batch, loss
         torch.cuda.empty_cache()
     return out
@@ -1454,6 +1493,8 @@ def train_sharded_check(configs, kernels) -> list:
     zero_counts(kernels)
     one = {}
     for arch, layers, mesh, B, S in SHARDED_TRAIN_CASES:
+        if (arch, layers, B, S) in one:  # one process runs a step once for every mesh
+            continue
         cfg = sharded_train_cfg(configs, arch, layers)
         settings = OptSettings.auto(cfg.param_count())
         model = DecoderLM.from_config(cfg, seed=0, device="cuda", trainable=True)
@@ -1464,8 +1505,9 @@ def train_sharded_check(configs, kernels) -> list:
         t0 = time.monotonic()
         with StepSpy(lambda m, g: _global_norm(g.values())) as spy:
             loss, model, opt = step(model, opt, batch)
-        one[arch] = dict(loss=loss.item(), ms=(time.monotonic() - t0) * 1e3, grad_norm=spy.grad_norm,
-                         grads=spy.grads, params={n: p.detach().cpu() for n, p in model.named_parameters()})
+        one[arch, layers, B, S] = dict(loss=loss.item(), ms=(time.monotonic() - t0) * 1e3, grad_norm=spy.grad_norm,
+                                       grads=spy.grads,
+                                       params={n: p.detach().cpu() for n, p in model.named_parameters()})
         del model, opt, batch, loss, spy
         torch.cuda.empty_cache()
     t0 = time.monotonic()
@@ -1473,21 +1515,22 @@ def train_sharded_check(configs, kernels) -> list:
     ranks_s = time.monotonic() - t0
     rows = []
     for arch, layers, mesh, B, S in SHARDED_TRAIN_CASES:
-        want = one.pop(arch)
+        want = one[arch, layers, B, S]
+        case = sharded_case_key(arch, mesh)
         worst = dict(params=0.0, grads=0.0)
         for r, res in enumerate(ranks):
             for what, key in (("loss", "loss"), ("global grad norm", "grad_norm")):
-                a, b = float(res[f"{arch}|{key}"]), want[key]
+                a, b = float(res[f"{case}|{key}"]), want[key]
                 check(np.isfinite(a) and abs(a - b) <= MODEL_TOL * (1 + abs(b)),
                       f"train_sharded {arch}: rank {r} {what} {a}, one process {b}")
             for n, p in want["params"].items():
-                sl = tuple(slice(int(a), int(b)) for a, b in res[f"{arch}|slice|{n}"])
-                ok, err, share = close(torch.from_numpy(res[f"{arch}|param|{n}"]), p[sl], MODEL_TOL)
+                sl = tuple(slice(int(a), int(b)) for a, b in res[f"{case}|slice|{n}"])
+                ok, err, share = close(torch.from_numpy(res[f"{case}|param|{n}"]), p[sl], MODEL_TOL)
                 check(ok, f"train_sharded {arch}: rank {r} parameter {n} differs by {err}")
                 worst["params"] = max(worst["params"], share)
                 g = want["grads"][n][sl]
                 scale = max(g.abs().max().item(), torch.finfo(torch.float32).tiny)
-                ok, err, share = close(torch.from_numpy(res[f"{arch}|grad|{n}"]), g, MODEL_TOL, MODEL_TOL * scale)
+                ok, err, share = close(torch.from_numpy(res[f"{case}|grad|{n}"]), g, MODEL_TOL, MODEL_TOL * scale)
                 check(ok, f"train_sharded {arch}: rank {r} gradient of {n} differs by {err} "
                           f"(largest magnitude {scale})")
                 worst["grads"] = max(worst["grads"], share)
@@ -1496,20 +1539,283 @@ def train_sharded_check(configs, kernels) -> list:
                    reduce="reduce_scatter_tensor (all_reduce where the leaf is replicated)", batch=B, seq=S,
                    params=sharded_train_cfg(configs, arch, layers).param_count(),
                    loss=want["loss"], grad_norm=want["grad_norm"],
-                   rank_loss=[float(res[f"{arch}|loss"]) for res in ranks],
-                   rank_grad_norm=[float(res[f"{arch}|grad_norm"]) for res in ranks],
+                   rank_loss=[float(res[f"{case}|loss"]) for res in ranks],
+                   rank_grad_norm=[float(res[f"{case}|grad_norm"]) for res in ranks],
                    params_worst_tol_share=worst["params"], grads_worst_tol_share=worst["grads"],
-                   one_process_step_ms=want["ms"], rank_step_ms=[float(res[f"{arch}|step_ms"]) for res in ranks],
-                   rank_peak_gb=[float(res[f"{arch}|peak_gb"]) for res in ranks], run_ranks_s=ranks_s,
+                   one_process_step_ms=want["ms"], rank_step_ms=[float(res[f"{case}|step_ms"]) for res in ranks],
+                   rank_peak_gb=[float(res[f"{case}|peak_gb"]) for res in ranks], run_ranks_s=ranks_s,
                    phase_s_so_far=time.monotonic() - t_phase,
                    rank_ms_note="two processes sharing one card, the gradients copied to the host "
                                 "inside the step: not a speed")
         print("train_sharded " + json.dumps(row), flush=True)
         rows.append(row)
-        del want
+    del one
     counts = read_counts(kernels)
     check(not any(counts.values()), f"the sharded training check launched hand kernels: {counts}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def kernel_fns() -> dict:
+    """Every kernel wrapper with a launch count, by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+
+    return {fn.__name__: fn for fn in (fa.flash_attention, fa.flash_attention_tc, fa.flash_attention_cuda_core,
+                                       ssd.ssd_scan, ssd.ssd_scan_tc, ssd.ssd_scan_cuda_core)}
+
+
+class EntryInputs:
+    """While in use, keeps the inputs of every call of a ``kernels.ops``
+    entry point (``flash_attention`` or ``ssd_scan``), passing each on."""
+
+    def __init__(self, name: str):
+        self.name, self.calls = name, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.orig = ops, getattr(ops, self.name)
+
+        def kept(*a, **k):
+            self.calls.append((a, k))
+            return self.orig(*a, **k)
+
+        setattr(ops, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.orig)
+
+
+def tp_greedy(prefill, decode, model, prompt, n_new: int, grow) -> tuple:
+    """Prefill, ``grow`` the caches by ``n_new`` slots, ``n_new`` greedy
+    steps: (tokens (B, n_new), the logits of every step (n_new, B, V) f32,
+    prefill ms, decode ms a step), on the host."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, state = prefill(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    state = grow(state, n_new)
+    toks, seen = [], []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for step in range(n_new):
+        seen.append(logits.float().cpu())
+        tok = torch.argmax(logits, -1)[:, None]
+        toks.append(tok.cpu())
+        if step + 1 < n_new:
+            logits, state = decode(model, state, tok, prompt.shape[1] + step)
+    torch.cuda.synchronize()
+    return torch.cat(toks, 1), torch.stack(seen), prefill_ms, (time.monotonic() - t0) * 1e3 / (n_new - 1)
+
+
+def tp_kernel_vs_plain(entry: str, call, dtype) -> dict:
+    """The kernel the dtype picks against its plain version on the inputs
+    of one call of the ``kernels.ops`` entry point ``entry`` (launches made
+    here are not the main path's)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+
+    (a, k) = call
+    tc = dtype == torch.bfloat16
+    if entry == "flash_attention":
+        kern = fa.flash_attention_tc if tc else fa.flash_attention_cuda_core
+        got, want, tol = kern(*a, **k), fa.flash_attention_plain(*a, **k), KERNEL_TOL[dtype]
+        ok, err, share = close(got, want, tol)
+        return dict(q=list(a[0].shape), kv=list(a[1].shape), ok=ok, max_abs_err=err, tol=tol, tol_share=share)
+    kern = ssd.ssd_scan_tc if tc else ssd.ssd_scan_cuda_core
+    (y, st), (wy, wst), tol = kern(*a, **k), ssd.ssd_scan_plain(*a, **k), SSD_TOL[dtype]
+    ok_y, err_y, share_y = close(y, wy, tol)
+    ok_s, err_s, share_s = close(st, wst, tol)
+    return dict(x=list(a[0].shape), ok=ok_y and ok_s, max_abs_err=max(err_y, err_s), tol=tol,
+                tol_share=max(share_y, share_s))
+
+
+def tp_serve_rank(rank: int, world: int) -> dict:
+    """One rank of ``tp_serve`` on a (data 1, model ``world``) mesh of the
+    card: (a), (b) and (c) in turn, each with the launch counts of its
+    counted call, the inputs of that call's kernels held against their
+    plain versions, and its outputs or their errors against one process."""
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import ShardedLM, ShardingRules, gather, shard_state
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.models.parallel import MeshContext
+    from repro_torch.models.ssm import ssm_block, ssm_param_shapes
+    from repro_torch.serving.engine import grow_kv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = kernel_fns()
+    mesh = make_smoke_mesh(1, world, device_type="cuda")
+    rules = ShardingRules(mesh, fsdp_axes=("data",))
+    out = {}
+
+    def counted(fn, key):
+        def call(*a):
+            zero_counts(kernels)
+            res = fn(*a)
+            torch.cuda.synchronize()
+            for name, n in read_counts(kernels).items():
+                out[f"{key}|launches|{name}"] = np.array(n)
+            return res
+        return call
+
+    def grow_one(state, n):
+        return grow_kv(state[0], n), state[1]
+
+    def grow_ranks(cfg, B):
+        def grow(state, n):
+            caches, kv_len = state
+            held = {pos: {name: gather(t, keep_dims=(1,)) for name, t in sub.items()}
+                    for pos, sub in caches.items()}
+            return shard_state(rules, cfg, (grow_kv(held, n), kv_len.to_local()), B)
+        return grow
+
+    def serve(key, cfg, B, S, single: bool):
+        model = M.DecoderLM.from_config(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(21)
+        prompt = torch.randint(0, cfg.vocab, (B, S), generator=g, device="cuda")
+        with torch.no_grad():
+            one = tp_greedy(make_prefill_step(cfg), make_decode_step(cfg), model, prompt, TP_NEW,
+                            grow_one) if single else None
+        sharded = ShardedLM(model, rules)
+        del model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with EntryInputs("flash_attention") as flash:
+            toks, logits, prefill_ms, decode_ms = tp_greedy(
+                counted(make_prefill_step(cfg, rules, B), key), make_decode_step(cfg, rules, B), sharded,
+                prompt, TP_NEW, grow_ranks(cfg, B))
+        out[f"{key}|peak_gb"] = np.array(torch.cuda.max_memory_allocated() / 1e9)
+        out[f"{key}|prefill_ms"], out[f"{key}|decode_ms"] = np.array(prefill_ms), np.array(decode_ms)
+        out[f"{key}|tokens"] = toks.numpy()
+        out[f"{key}|finite"] = np.array(bool(torch.isfinite(logits).all()))
+        out[f"{key}|flash_shapes"] = np.array([list(a[0].shape) + list(a[1].shape) for a, _ in
+                                               flash.calls[:cfg.n_layers]])
+        out[f"{key}|kernel"] = np.array(json.dumps(tp_kernel_vs_plain("flash_attention", flash.calls[0], cfg.torch_dtype)))
+        if single:
+            out[f"{key}|one_tokens"] = one[0].numpy()
+            out[f"{key}|logits_err"] = np.array((logits - one[1]).abs().max().item())
+            out[f"{key}|logits_share"] = np.array(close(logits, one[1], MODEL_TOL)[2])
+        del sharded, flash
+        torch.cuda.empty_cache()
+
+    full = configs.get(TP_ARCH)
+    serve("a", dataclasses.replace(full, n_layers=TP_F32_LAYERS, dtype="float32"), TP_F32_B, TP_F32_S, True)
+    serve("b", full, TP_BF16_B, TP_BF16_S, False)
+
+    ctx = MeshContext(mesh, batch_axes=("data",))
+    for dtype in ("float32", "bfloat16"):
+        key = f"c|{dtype}"
+        cfg = dataclasses.replace(configs.get(HYBRID), dtype=dtype)
+        g = torch.Generator(device="cuda").manual_seed(9)
+        params = M._init_tree(g, torch.device("cuda"), ssm_param_shapes(cfg), cfg)
+        x = torch.randn(JAMBA_SSM_B, JAMBA_SSM_S, cfg.d_model, generator=g, device="cuda").to(cfg.torch_dtype)
+        h0, h1 = ctx.part(cfg.ssm_heads)
+        local = dict(params, out_proj=params["out_proj"][h0 * cfg.ssm_head_dim:h1 * cfg.ssm_head_dim])
+        with torch.inference_mode(), EntryInputs("ssd_scan") as scans:
+            y, (st, _) = counted(lambda: ssm_block(local, x, cfg, ctx), key)()
+            out[f"{key}|ssd_heads"] = np.array([a[0].shape[2] for a, _ in scans.calls])
+            out[f"{key}|kernel"] = np.array(json.dumps(tp_kernel_vs_plain("ssd_scan", scans.calls[0], cfg.torch_dtype)))
+            out[f"{key}|finite"] = np.array(bool(torch.isfinite(y).all()))
+            if dtype == "float32":
+                want, (want_st, _) = ssm_block(params, x, cfg)
+                ok, err, share = close(y, want, MODEL_TOL)
+                out[f"{key}|y_err"], out[f"{key}|y_share"] = np.array(err), np.array(share)
+                out[f"{key}|state_share"] = np.array(close(st, want_st[:, h0:h1], MODEL_TOL)[2])
+        del params, x, local, y, st, scans
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_check(configs, kernels) -> dict:
+    """Tensor-parallel serving on two gloo ranks of the card (``run_ranks``,
+    mesh data 1 x model 2), each rank on its half of the heads and d_ff:
+    (a) danube f32 at full width cut to 2 layers, ``make_prefill_step`` on 2
+    x 512 then 8 greedy ``make_decode_step`` steps, each rank's logits within
+    2e-3 of one process and its tokens equal, exactly 2 CUDA-core flash
+    launches a prefill at q (2, 512, 16, 120), k/v (2, 512, 4, 120); (b)
+    danube bf16 at full width and depth, 4 x 1024 then 8 steps, exactly 24
+    tensor-core flash launches a prefill at 16 / 4 heads, the kernel against
+    its plain version on the first layer's inputs at 2e-2, each rank's peak
+    memory and wall ms (gloo through the host on one card: not a speed);
+    (c) one jamba SSM layer at full width, B 1 x S 8192: one SSD launch a
+    call on 128 heads, the kernel against its plain version on those inputs
+    (2e-2 bf16, 2e-4 f32), the f32 layer within 2e-3 of one process.
+    Returns the launch counts by run."""
+    from repro_torch.distributed.ranks import run_ranks
+
+    t0 = time.monotonic()
+    zero_counts(kernels)
+    ranks = run_ranks(tp_serve_rank, TP_RANKS, device="cuda", timeout_s=900)
+    ranks_s = time.monotonic() - t0
+    cfg = configs.get(TP_ARCH)
+    H, KV, hd = cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS, cfg.head_dim
+    runs = {}
+    for key, B, S, layers, dtype in (("a", TP_F32_B, TP_F32_S, TP_F32_LAYERS, "float32"),
+                                     ("b", TP_BF16_B, TP_BF16_S, cfg.n_layers, "bfloat16")):
+        variant = "tc" if dtype == "bfloat16" else "cuda_core"
+        want = {"flash_attention": layers, f"flash_attention_{variant}": layers}
+        row = dict(part=key, arch=TP_ARCH, dtype=dtype, layers=layers, batch=B, prompt_len=S, new_tokens=TP_NEW,
+                   mesh="data 1 x model 2", backend="gloo", ranks=[])
+        for r, res in enumerate(ranks):
+            counts = {name: int(res[f"{key}|launches|{name}"]) for name in kernels}
+            check_counts(f"{TP_ARCH} tp_serve ({key}) rank {r}", counts, want, "prefill")
+            runs[f"{TP_ARCH} {dtype} tp_serve ({key}) rank {r}"] = counts
+            shapes = res[f"{key}|flash_shapes"].tolist()
+            check(shapes == [[B, S, H, hd, B, S, KV, hd]] * layers,
+                  f"tp_serve ({key}) rank {r}: flash saw q/k shapes {shapes}, want {[B, S, H, hd]} / {[B, S, KV, hd]}")
+            kern = json.loads(str(res[f"{key}|kernel"]))
+            check(kern["ok"], f"tp_serve ({key}) rank {r}: flash kernel vs plain {kern}")
+            toks = res[f"{key}|tokens"]
+            check(bool(res[f"{key}|finite"]) and toks.shape == (B, TP_NEW) and ((0 <= toks) & (toks < cfg.vocab)).all(),
+                  f"tp_serve ({key}) rank {r}: logits not finite or tokens {toks.shape}")
+            check(np.array_equal(toks, ranks[0][f"{key}|tokens"]), f"tp_serve ({key}): ranks' tokens differ")
+            rank = dict(launches=counts, kernel=kern, peak_gb=float(res[f"{key}|peak_gb"]),
+                        prefill_ms=float(res[f"{key}|prefill_ms"]), decode_ms_per_step=float(res[f"{key}|decode_ms"]))
+            if key == "a":
+                check(np.array_equal(toks, res[f"{key}|one_tokens"]),
+                      f"tp_serve (a) rank {r}: tokens {toks.tolist()}, one process {res['a|one_tokens'].tolist()}")
+                check(float(res["a|logits_share"]) <= 1.0,
+                      f"tp_serve (a) rank {r}: logits differ from one process by {float(res['a|logits_err'])}")
+                rank.update(logits_max_abs_err=float(res["a|logits_err"]),
+                            logits_tol_share=float(res["a|logits_share"]), tokens_equal_one_process=True)
+            row["ranks"].append(rank)
+        row.update(ms_note="gloo through the host on one card: not a speed", run_ranks_s=ranks_s)
+        print("tp_serve " + json.dumps(row), flush=True)
+    ssm_heads = configs.get(HYBRID).ssm_heads // TP_RANKS
+    for dtype in ("float32", "bfloat16"):
+        key = f"c|{dtype}"
+        variant = "tc" if dtype == "bfloat16" else "cuda_core"
+        want = {"ssd_scan": 1, f"ssd_scan_{variant}": 1}
+        row = dict(part="c", arch=HYBRID, layer="ssm_block", dtype=dtype, batch=JAMBA_SSM_B, seq=JAMBA_SSM_S,
+                   mesh="data 1 x model 2", ranks=[])
+        for r, res in enumerate(ranks):
+            counts = {name: int(res[f"{key}|launches|{name}"]) for name in kernels}
+            check_counts(f"{HYBRID} tp_serve (c) {dtype} rank {r}", counts, want, "ssm_block")
+            runs[f"{HYBRID} ssm_block {dtype} tp_serve (c) rank {r}"] = counts
+            heads = res[f"{key}|ssd_heads"].tolist()
+            check(heads == [ssm_heads], f"tp_serve (c) {dtype} rank {r}: SSD ran on {heads} heads")
+            kern = json.loads(str(res[f"{key}|kernel"]))
+            check(kern["ok"] and bool(res[f"{key}|finite"]), f"tp_serve (c) {dtype} rank {r}: SSD kernel vs plain {kern}")
+            rank = dict(launches=counts, ssd_heads=heads[0], kernel=kern)
+            if dtype == "float32":
+                check(float(res[f"{key}|y_share"]) <= 1.0 and float(res[f"{key}|state_share"]) <= 1.0,
+                      f"tp_serve (c) rank {r}: the f32 layer differs from one process by {float(res[f'{key}|y_err'])}")
+                rank.update(y_max_abs_err=float(res[f"{key}|y_err"]), y_tol_share=float(res[f"{key}|y_share"]),
+                            state_tol_share=float(res[f"{key}|state_share"]))
+            row["ranks"].append(rank)
+        print("tp_serve " + json.dumps(row), flush=True)
+    print(f"tp_serve: phase {time.monotonic() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return runs
 
 
 def roofline_check(configs, train_row: dict) -> dict:
@@ -1677,11 +1983,7 @@ def main() -> None:
     )
     build_phase(_build)
 
-    kernels = {
-        fn.__name__: fn
-        for fn in (fa.flash_attention, fa.flash_attention_tc, fa.flash_attention_cuda_core,
-                   ssd.ssd_scan, ssd.ssd_scan_tc, ssd.ssd_scan_cuda_core)
-    }
+    kernels = kernel_fns()
     flash_rows = kernel_checks(fa)
     ssd_rows = ssd_checks(ssd)
     danube_f32 = serve_f32_checks(configs, M, DANUBE, kernels)
@@ -1704,6 +2006,7 @@ def main() -> None:
     train_main_path(configs, kernels, card, MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)
     moe_sharded_check(configs, kernels)
     train_sharded_check(configs, kernels)
+    tp_runs = tp_serve_check(configs, kernels)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train_e2e_example(tmp)
         checkpoint_round_trip(tmp)
@@ -1722,7 +2025,7 @@ def main() -> None:
             f"{VLM.arch} f32 check": vlm_f32,
             f"{ENCODER.arch} bf16 main path (make_encoder_step)": encoder["launches"],
             f"{ENCODER.arch} f32 check S={ENCODER.check_l}": encoder_f32[ENCODER.check_l],
-            f"{ENCODER.arch} f32 check S={ENCODER_RAGGED_L}": encoder_f32[ENCODER_RAGGED_L]}
+            f"{ENCODER.arch} f32 check S={ENCODER_RAGGED_L}": encoder_f32[ENCODER_RAGGED_L], **tp_runs}
 
     def by_run(kernel: str) -> dict:
         return {run: counts[kernel] for run, counts in runs.items() if counts[kernel]}

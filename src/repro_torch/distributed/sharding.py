@@ -40,6 +40,7 @@ import torch
 from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import DecoderLM, param_shapes
+from repro_torch.models.parallel import attn_split, kv_split, mlp_split, ssm_split
 
 
 def P(*entries) -> tuple:
@@ -320,25 +321,37 @@ def from_local(local: torch.Tensor, mesh, places, shape):
                               stride=_contiguous_stride(shape))
 
 
-def _kept(places, keep_dims) -> list:
-    from torch.distributed.tensor import Replicate
-
-    return [p if p.is_shard() and p.dim in keep_dims else Replicate() for p in places]
-
-
 def gather(dt, keep_dims: Sequence[int] = ()) -> torch.Tensor:
     """The local tensor of ``dt`` gathered over every mesh axis but those
-    that split a dim in ``keep_dims``."""
-    return dt.redistribute(dt.device_mesh, _kept(dt.placements, keep_dims)).to_local()
+    that split a dim in ``keep_dims``, by c10d collectives (``_gathered``)."""
+    return _gathered(dt.to_local(), dt.device_mesh, _placed(dt.placements, keep_dims))
 
 
-def _period_dtensor(dt, p: int):
-    """Period ``p``'s slice of a DTensor stacked over periods (dim 0, never
-    sharded), as a DTensor over this rank's view of it."""
+def _placed(places, keep_dims: Sequence[int] = ()) -> "_Layout":
+    """The layout ``_gathered`` reads (placements and kept dims) of a tensor
+    laid out by ``places``."""
+    return _Layout(None, tuple(places), None, None, tuple(keep_dims), ())
+
+
+def _own_part(full: torch.Tensor, mesh, places, keep_dims: Sequence[int] = ()) -> torch.Tensor:
+    """This rank's part of ``full``, which ``_gathered`` joined over every
+    dim ``places`` split but ``keep_dims`` (already this rank's): the
+    gather's inverse, a view."""
+    names = list(mesh_sizes(mesh))
+    spec = [()] * full.ndim
+    for i, p in enumerate(places):
+        if p.is_shard() and p.dim not in keep_dims:
+            spec[p.dim] = spec[p.dim] + (names[i],)
+    return full[local_slices([e or None for e in spec], full.shape, mesh_sizes(mesh),
+                             mesh.get_coordinate())]
+
+
+def _shift(places) -> tuple:
+    """The placements of one period's slice of a leaf stacked over periods
+    (dim 0, never sharded)."""
     from torch.distributed.tensor import Shard
 
-    places = [Shard(q.dim - 1) if q.is_shard() else q for q in dt.placements]
-    return from_local(dt.to_local()[p], dt.device_mesh, places, dt.shape[1:])
+    return tuple(Shard(q.dim - 1) if q.is_shard() else q for q in places)
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +366,10 @@ def _period_dtensor(dt, p: int):
 class _Layout:
     """How one parameter leaf is laid out: its spec, DTensor placements and
     global shape and dtype, the dims a gather leaves split (the MoE
-    experts' E), and the mesh axes that split it."""
+    experts' E, a tensor-parallel leaf's heads or d_ff), the mesh axes that
+    split it, and the axes its gradient is summed over besides the batch's
+    (``model`` for a leaf gathered whole of which the ranks of a model group
+    read different columns)."""
 
     spec: tuple
     places: tuple
@@ -361,6 +377,7 @@ class _Layout:
     dtype: torch.dtype
     keep: tuple
     split_axes: tuple
+    summed_over: tuple = ()  # axes its gradient sums over whatever the batch
 
 
 def _sum_axes(mesh, axes) -> tuple:
@@ -443,9 +460,15 @@ class _GatherOnUse(torch.autograd.Function):
         rank then takes the whole batch), every rank computed the same
         gradient: it is SLICED, never summed.  The sharded ``moe_block``
         already sums its token and router cotangents over ``model``;
-      * a kept dim (E of the MoE experts, split on ``model``) stays split:
-        each rank's cotangent is that of its own experts, summed over the
-        batch axes only.
+      * a kept dim (E of the MoE experts, a tensor-parallel leaf's heads or
+        d_ff, split on ``model``) stays split: each rank's cotangent is that
+        of its own experts or heads, summed over the batch axes only;
+      * a leaf gathered whole of which the ranks of a model group read
+        different columns (``_Layout.summed_over``: a tensor-parallel
+        layer's ``wk/wv`` whose kv heads do not split over ``model``, the
+        SSM's ``in_proj``, conv and per-head leaves) is SUMMED over
+        ``model`` too: each rank's cotangent covers only the columns its
+        heads read, and ranks overlap where they share a kv head or B/C.
     """
 
     @staticmethod
@@ -471,22 +494,50 @@ def gather_on_use(local: torch.Tensor, mesh, layout: _Layout, sum_axes: tuple):
 # A model stored sharded
 # ---------------------------------------------------------------------------
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+_SSM_READ_BY_HEAD = ("in_proj", "conv_w", "conv_b", "gate_norm", "A_log", "D", "dt_bias")
+
+
+def _model_rule(cfg: ArchConfig, m: int, mixer: str, mlp: str, path: Tuple[str, ...]) -> tuple:
+    """(kept dims, whether the gradient sums over ``model``) of one period
+    leaf, by its path under the position: what the tensor-parallel layers
+    (``models/parallel.py``) read of it."""
+    part, name = path[0], path[-1]
+    if part == "mixer" and mixer == "attn" and attn_split(cfg, m):
+        if name in ("wq", "wk", "wv"):
+            return ((1,), False) if name == "wq" or kv_split(cfg, m) else ((), True)
+        if name in ("bq", "bk", "bv", "wo"):
+            return ((0,), False) if name in ("bq", "wo") or kv_split(cfg, m) else ((), True)
+    if part == "mixer" and mixer == "ssm" and ssm_split(cfg, m):
+        if name == "out_proj":
+            return (0,), False
+        if name in _SSM_READ_BY_HEAD:
+            return (), True
+    if part == "mlp" and mlp == "mlp" and mlp_split(cfg, m) and name in _EXPERT_LEAVES:
+        return ((0,) if name == "w_down" else (1,)), False
+    if part == "mlp" and mlp == "moe" and name in _EXPERT_LEAVES:
+        return (0,), False
+    return (), False
 
 
 def _leaf_layouts(cfg: ArchConfig, rules: ShardingRules) -> Dict[str, _Layout]:
     """The layout of every parameter, by ``DecoderLM`` parameter name and in
     its order: a per-period parameter takes its stacked leaf's spec without
-    the period axis."""
+    the period axis, and keeps its ``model`` shard where ``_model_rule``
+    says (a kept dim's spec is exactly ``model``)."""
     mesh = rules.mesh
     names = list(mesh_sizes(mesh))
+    m = rules.model_size
     shapes = param_shapes(cfg)
     specs = param_shardings(rules, cfg, shapes)
-    moe = {f"pos{i}" for i, kind in enumerate(cfg.mlp_pattern) if kind == "moe"}
 
-    def layout(spec, leaf, shape, keep=()):
+    def layout(spec, leaf, shape, keep=(), summed=False):
         places = tuple(placements(spec, mesh))
         split = tuple(a for a, p in zip(names, places) if p.is_shard() and mesh_sizes(mesh)[a] > 1)
-        return _Layout(tuple(spec), places, tuple(shape), leaf.dtype, keep, split)
+        for d in keep:
+            if _axes(spec[d]) != (rules.model_axis,):
+                raise ValueError(f"a kept dim {d} of {tuple(shape)} is laid out {spec}, not on model")
+        return _Layout(tuple(spec), places, tuple(shape), leaf.dtype, keep, split,
+                       (rules.model_axis,) if summed else ())
 
     out = {}
     for name in ("embed", "head", "final_norm"):
@@ -494,11 +545,11 @@ def _leaf_layouts(cfg: ArchConfig, rules: ShardingRules) -> Dict[str, _Layout]:
             out[name] = layout(specs[name], shapes[name], shapes[name].shape)
     for p in range(cfg.n_periods):
         for pos, sub in shapes["stack"].items():
+            i = int(pos[3:])
             for path, leaf in _tree_paths(sub):
-                expert = pos in moe and path[0] == "mlp" and path[-1] in _EXPERT_LEAVES
+                keep, summed = _model_rule(cfg, m, cfg.period[i], cfg.mlp_pattern[i], path)
                 out[".".join(("layers", str(p), pos, *path))] = layout(
-                    _lookup(specs["stack"][pos], path)[1:], leaf, leaf.shape[1:],
-                    (0,) if expert else ())
+                    _lookup(specs["stack"][pos], path)[1:], leaf, leaf.shape[1:], keep, summed)
     return out
 
 
@@ -597,20 +648,44 @@ class ShardedLM:
         return total.sqrt()
 
     def _gather(self, name: str, sum_axes: tuple) -> torch.Tensor:
-        return gather_on_use(self._local[name], self.mesh, self._layout[name], sum_axes)
+        lay = self._layout[name]
+        return gather_on_use(self._local[name], self.mesh, lay, sum_axes + lay.summed_over)
 
     def cache_periods(self, caches: Dict):
-        """Each period's caches gathered over every axis but the batch's;
-        after the caller has written into them (and asked for the next
-        period), this rank's shards take the writes back."""
+        """Each period's caches as the layers read them: a leaf that
+        ``_cache_keep`` keeps is this rank's shard itself (written in
+        place), any other is gathered over every axis but the batch's and,
+        after the caller has written into it (and asked for the next
+        period), this rank's shard takes its part back.  c10d collectives
+        (``_gathered``), never DTensor's."""
         for p in range(self.cfg.n_periods):
-            views = _map_paths(caches, lambda path, dt: _period_dtensor(dt, p))
-            full = _map_paths(views, lambda path, dt: gather(dt, keep_dims=(0,)))
-            yield full
-            for path, dt in _tree_paths(views):
-                back = from_local(_lookup(full, path), dt.device_mesh,
-                                  _kept(dt.placements, (0,)), dt.shape)
-                dt.to_local().copy_(back.redistribute(dt.device_mesh, dt.placements).to_local())
+            held = {}
+            for path, dt in _tree_paths(caches):
+                places = _shift(dt.placements)
+                held[path] = (dt.to_local()[p], places, _cache_keep(self.cfg, self.rules, path, places))
+            full = {path: _gathered(local, self.mesh, _placed(places, keep))
+                    for path, (local, places, keep) in held.items()}
+            yield _map_paths(caches, lambda path, dt: full[path])
+            for path, (local, places, keep) in held.items():
+                if full[path] is not local:
+                    local.copy_(_own_part(full[path], self.mesh, places, keep))
+
+
+def _cache_keep(cfg: ArchConfig, rules: ShardingRules, path: Tuple[str, ...], places) -> tuple:
+    """The dims of one period's decode-cache leaf (batch first) that stay
+    this rank's: the batch's, and the heads' where ``model`` alone splits
+    them and this rank's tensor-parallel layer reads exactly those heads
+    (an attention's kv heads under ``kv_split``, an SSM's heads under
+    ``ssm_split``).  The conv tail's channels are laid out contiguously,
+    never as the x | B | C channels of the rank's heads: it is gathered."""
+    pos, name = path[0], path[-1]
+    mixer, m = cfg.period[int(pos[3:])], rules.model_size
+    dim = {"k": 2, "v": 2, "state": 1}.get(name)
+    tp = kv_split(cfg, m) if mixer == "attn" else ssm_split(cfg, m)
+    names = list(mesh_sizes(rules.mesh))
+    by = [names[i] for i, p in enumerate(places)
+          if p.is_shard() and p.dim == dim and rules.mesh.size(i) > 1]
+    return (0, dim) if dim is not None and tp and by == [rules.model_axis] else (0,)
 
 
 class _View:
@@ -654,22 +729,63 @@ def _lookup(tree: Dict, path: Tuple[str, ...]):
     return tree
 
 
+def _join_model(t: torch.Tensor, rules: ShardingRules, dim: int) -> torch.Tensor:
+    """The model ranks' ``t`` joined along ``dim`` in rank order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    places = [Shard(dim) if a == rules.model_axis else Replicate() for a in mesh_sizes(rules.mesh)]
+    return _gathered(t, rules.mesh, _placed(places))
+
+
+def _whole_channels(cfg: ArchConfig, rules: ShardingRules, t: torch.Tensor) -> torch.Tensor:
+    """A conv tail of this rank's channels (x of its heads, then B and C)
+    joined over model into every channel (x of every head, B, C)."""
+    m, di = rules.model_size, cfg.d_inner
+    parts = _join_model(t, rules, t.ndim - 1).chunk(m, dim=-1)
+    return torch.cat([q[..., : di // m] for q in parts] + [parts[0][..., di // m :]], dim=-1)
+
+
 def shard_state(rules: ShardingRules, cfg: ArchConfig, state, global_batch: int):
     """A decode state built on this rank's slice of the batch (as the
     rules-aware prefill makes it) laid out by ``state_shardings``: each
-    rank keeps its shards of the caches, and ``kv_len`` its batch slice."""
+    rank keeps its shards of the caches, and ``kv_len`` its batch slice.
+    A tensor-parallel layer's cache holds this rank's heads (or channels):
+    where the layout splits them over ``model`` alone it is the shard
+    already, otherwise it is joined over model first.  c10d collectives,
+    no DTensor redistribution."""
     caches, kv_len = state
     mesh = rules.mesh
 
-    def global_shape(t):
-        return (t.shape[0], global_batch, *t.shape[2:])
+    def whole_shape(path, t):
+        return (t.shape[0], global_batch, *_cache_dims(cfg, path[-1], t.shape[2:]))
 
     specs, kv_spec = state_shardings(
-        rules, cfg, (_map_paths(caches, lambda path, t: torch.empty(global_shape(t), device="meta")),
-                     torch.empty((global_batch,), device="meta")))
+        rules, cfg, (_map_paths(caches, lambda path, t: types.SimpleNamespace(shape=whole_shape(path, t))),
+                     types.SimpleNamespace(shape=(global_batch,))))
 
     def shard(path, t):
         places = placements(_lookup(specs, path), mesh)
-        return from_local(t, mesh, _kept(places, (1,)), global_shape(t)).redistribute(mesh, places)
+        shape = whole_shape(path, t)
+        keep = (1,)
+        dim = next((d for d in range(2, t.ndim) if t.shape[d] != shape[d]), None)
+        if dim is not None:  # this rank's heads or channels
+            if 1 + _cache_keep(cfg, rules, path, _shift(places))[-1] == dim:
+                keep = (1, dim)
+            elif path[-1] == "conv":
+                t = _whole_channels(cfg, rules, t)
+            else:
+                t = _join_model(t, rules, dim)
+        local = _own_part(t, mesh, places, keep)
+        return from_local(local.contiguous(), mesh, places, shape)
 
     return _map_paths(caches, shard), from_local(kv_len, mesh, placements(kv_spec, mesh), (global_batch,))
+
+
+def _cache_dims(cfg: ArchConfig, name: str, dims) -> tuple:
+    """A cache leaf's trailing dims after (n_periods, B) with every head or
+    channel: (S, KV, hd), (H, P, N) or (K-1, conv_dim)."""
+    if name in ("k", "v"):
+        return (dims[0], cfg.n_kv_heads, dims[2])
+    if name == "state":
+        return (cfg.ssm_heads, *dims[1:])
+    return (dims[0], cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)

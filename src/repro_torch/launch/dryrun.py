@@ -128,8 +128,10 @@ def _nbytes(tensors) -> int:
 
 
 def _peak_bytes(tracker) -> int:
+    """The peak of live bytes on the devices, the meta device left out: a
+    meta tensor (a shape stand-in) holds no memory."""
     snap = tracker.get_tracker_snapshot("peak")
-    return int(sum(dev["Total"] for dev in snap.values()))
+    return int(sum(dev["Total"] for where, dev in snap.items() if torch.device(where).type != "meta"))
 
 
 def _fake_step(cfg, shape_cfg, rules, microbatches):

@@ -9,15 +9,22 @@ steps run SPMD, one process a rank.  Each takes the global batch and keeps
 the slice ``input_shardings`` gives its mesh coordinate (every rank the
 whole batch where it divides no data axis, as ``make_mesh_context`` says);
 ``params`` is a ``ShardedLM``, which gathers each period's parameters on use
-and leaves the MoE experts split over ``model``; the decode state follows
-``state_shardings`` (``sharding.shard_state``).  The serving steps return
-this rank's slice of their outputs; the train step reduces each gradient
-back to its shard (``sharding._GatherOnUse``), updates the shards and
-returns the loss of the global batch (each rank's loss divided by the
-global label count, so masked labels weigh as in the reference).  Only the MoE experts split work over
-``model``: the other layers run on gathered weights, the same on every rank
-of a model group (tensor-parallel compute is ROADMAP.md queue A's next
-item).
+and keeps the ``model`` shard of every leaf a layer splits over that axis;
+the decode state follows ``state_shardings`` (``sharding.shard_state``).
+Every rules-aware step — prefill, decode, encode and train — runs
+tensor-parallel on ``model`` (``models/parallel.py``): attention on its H/m
+query heads and the kv heads they read, the dense MLP on its d_ff/m, the
+SSM on its H_ssm/m heads (flash and the SSD scan run on those heads in
+serving), each row-parallel product's f32 partial sums all-reduced over
+the model group, and the MoE experts split over ``model``; a layer whose
+heads or d_ff the model axis does not divide runs whole on every rank of
+its model group.  ``embed``, ``head`` and the norms run whole on every
+rank.  The serving steps return this rank's slice of their outputs; the
+train step reduces each gradient back to its shard
+(``sharding._GatherOnUse``), updates the shards and returns the loss of the
+global batch (each rank's loss divided by the global label count, so masked
+labels weigh as in the reference).  Every collective is a c10d one: no
+step reaches a DTensor redistribution.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from repro_torch.distributed.sharding import (
 from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig, ShapeConfig
-from repro_torch.models.moe import MeshContext
+from repro_torch.models.parallel import MeshContext
 from repro_torch.training.optimizer import OptSettings, adamw_update
 
 
@@ -49,10 +56,12 @@ def _fitting_batch_axes(rules: ShardingRules, global_batch: int) -> tuple:
 def make_mesh_context(
     rules: Optional[ShardingRules], cfg: ArchConfig, global_batch: int
 ) -> Optional[MeshContext]:
-    """MeshContext for the sharded MoE path: only the fsdp axes that evenly
-    divide the batch are used as batch axes (batch=1 long-context decode
-    runs with a fully replicated token set inside the MoE)."""
-    if rules is None or "moe" not in cfg.mlp_pattern:
+    """MeshContext for the sharded MoE block and the tensor-parallel layers
+    (None without rules, or where neither is there: no MoE and a model axis
+    of 1): only the fsdp axes that evenly divide the batch are used as
+    batch axes (batch=1 long-context decode runs with a fully replicated
+    token set inside the MoE)."""
+    if rules is None or ("moe" not in cfg.mlp_pattern and rules.model_size == 1):
         return None
     axes = _fitting_batch_axes(rules, global_batch)
     return MeshContext(rules.mesh, batch_axes=axes, model_axis=rules.model_axis)

@@ -18,6 +18,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.parallel import (
+    MeshContext,
+    attn_split,
+    gather_over_model,
+    into_region,
+    kv_heads_read,
+    kv_split,
+    mlp_split,
+    model_size,
+    out_of_region,
+)
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -197,6 +208,19 @@ def plain_attention(
     return _heads_out(o, q.dtype)
 
 
+def _head_cols(w: torch.Tensor, lo: int, hi: int, hd: int) -> torch.Tensor:
+    """The last-dim entries of ``w`` (a projection's columns or a bias) of
+    heads [lo, hi)."""
+    return w.narrow(-1, lo * hd, (hi - lo) * hd)
+
+
+def _take_heads(t: torch.Tensor, lo: int, hi: int, n_all: int) -> torch.Tensor:
+    """(B, S, n, hd) -> heads [lo, hi), where ``t`` holds all ``n_all``."""
+    if t.shape[2] != n_all or (lo, hi) == (0, n_all):
+        return t
+    return t.narrow(2, lo, hi - lo).contiguous()
+
+
 def attention_block(
     params,
     x: torch.Tensor,
@@ -206,6 +230,8 @@ def attention_block(
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_pos: Optional[int] = None,
     kv_len: Optional[torch.Tensor] = None,
+    ctx: Optional[MeshContext] = None,
+    full_kv: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full attention sub-layer: qkv proj, rope, SDPA, out proj.
 
@@ -214,24 +240,53 @@ def attention_block(
     Decode: ``kv_cache=(K, V)`` of shape (B, S_max, KV, hd); the new token's
     K/V are written at ``cache_pos`` IN PLACE (the reference returns an
     updated copy) and attention runs over the cache, which is returned.
-    """
+
+    Under a ``ctx`` whose model axis splits the heads (``attn_split``) the
+    block is tensor-parallel: ``wq``/``bq`` hold this rank's H/m heads'
+    columns and ``wo`` their rows; ``wk/wv/bk/bv`` hold its kv heads'
+    columns (``kv_split``) or are whole, and the rank takes the columns of
+    the kv heads it reads (all of them where ``full_kv`` asks for every
+    head's K/V, as the prefill's cache does, or a decode cache holds every
+    head).  The core runs on the rank's heads, the ``wo`` product's f32
+    partial sums are all-reduced over the model group, then cast.  A decode
+    cache holds this rank's kv heads (written in place) or every kv head
+    (the new token's K/V of every head written; a split K/V gathered over
+    the model group first)."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
+    split = attn_split(cfg, model_size(ctx))
+    wk, wv = params["wk"], params["wv"]
+    bk, bv = (params["bk"], params["bv"]) if cfg.qkv_bias else (None, None)
+    (h0, h1), (k0, k1) = (0, H), (0, KV)
+    if split:
+        x = into_region(x, ctx)
+        h0, h1 = ctx.part(H)
+        if kv_split(cfg, ctx.model_size):
+            k0, k1 = ctx.part(KV)
+        else:
+            k0, k1 = kv_heads_read(cfg, h0, h1)
+            every = full_kv or (kv_cache is not None and kv_cache[0].shape[2] == KV)
+            m0, m1 = (0, KV) if every else (k0, k1)
+            wk, wv = _head_cols(wk, m0, m1, hd), _head_cols(wv, m0, m1, hd)
+            if cfg.qkv_bias:
+                bk, bv = _head_cols(bk, m0, m1, hd), _head_cols(bv, m0, m1, hd)
     q = _dot_f32(x, params["wq"])
-    k = _dot_f32(x, params["wk"])
-    v = _dot_f32(x, params["wv"])
+    k = _dot_f32(x, wk)
+    v = _dot_f32(x, wv)
     if cfg.qkv_bias:
         q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    q = q.to(dt).reshape(B, S, H, hd)
-    k = k.to(dt).reshape(B, S, KV, hd)
-    v = v.to(dt).reshape(B, S, KV, hd)
+        k = k + bk
+        v = v + bv
+    q = q.to(dt).reshape(B, S, h1 - h0, hd)
+    k = k.to(dt).reshape(B, S, -1, hd)
+    v = v.to(dt).reshape(B, S, -1, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
+        cache = (k, v)
+        k, v = _take_heads(k, k0, k1, KV), _take_heads(v, k0, k1, KV)
         mask = AttnMask(causal=cfg.causal, window=cfg.window)
         if cfg.use_kernels:
             from repro_torch.kernels.ops import flash_attention  # lazy: no cycle
@@ -241,25 +296,35 @@ def attention_block(
             out = chunked_attention(q, k, v, mask, chunk=cfg.attn_chunk)
         else:
             out = plain_attention(q, k, v, mask)
-        cache = (k, v)
     else:
         K, V = kv_cache
         assert cache_pos is not None
+        if K.shape[2] != k.shape[2]:  # a cache of every kv head: gather the split heads' K/V
+            k, v = gather_over_model(k, ctx, 2), gather_over_model(v, ctx, 2)
         K[:, cache_pos : cache_pos + S] = k
         V[:, cache_pos : cache_pos + S] = v
         cache = (K, V)
         mask = AttnMask(causal=cfg.causal, window=cfg.window, kv_len=kv_len)
         # query absolute position == its cache slot
-        out = plain_attention(q, K, V, mask, q_offset=cache_pos)
-    y = _dot_f32(out.reshape(B, S, H * hd), params["wo"])
+        out = plain_attention(q, _take_heads(K, k0, k1, KV), _take_heads(V, k0, k1, KV), mask,
+                              q_offset=cache_pos)
+    y = _dot_f32(out.reshape(B, S, (h1 - h0) * hd), params["wo"])
+    if split:
+        y = out_of_region(y, ctx)  # the f32 partial sums, then the cast
     return y.to(dt), cache
 
 
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
-def mlp_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_block(params, x: torch.Tensor, cfg: ArchConfig, ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """The dense MLP; under a ``ctx`` whose model axis splits d_ff
+    (``mlp_split``) the leaves hold this rank's d_ff slice and the
+    ``w_down`` product's f32 partial sums are all-reduced, then cast."""
     dt = x.dtype
+    split = mlp_split(cfg, model_size(ctx))
+    if split:
+        x = into_region(x, ctx)
     if cfg.mlp_act == "swiglu":
         g = _dot_f32(x, params["w_gate"])
         u = _dot_f32(x, params["w_up"])
@@ -267,7 +332,10 @@ def mlp_block(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:  # gelu: classic 2-matrix MLP (encoder stacks); jax.nn.gelu is tanh
         u = _dot_f32(x, params["w_up"])
         h = F.gelu(u, approximate="tanh").to(dt)
-    return _dot_f32(h, params["w_down"]).to(dt)
+    y = _dot_f32(h, params["w_down"])
+    if split:
+        y = out_of_region(y, ctx)
+    return y.to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,13 @@ attention position, ``state`` (n_periods, B, H, P, N) and ``conv``
 (n_periods, B, K-1, conv_dim), both f32, for an SSM position.
 A period position's channel mixer is a dense MLP or an MoE block
 (``models/moe.py``), as ``cfg.mlp_pattern`` says.  ``ctx`` (a
-``moe.MeshContext``, None for one process) reaches ``moe_block`` as in the
-reference; under it ``params`` may be a ``distributed.sharding.ShardedLM``'s
-``view()``, which gathers each period's parameters on use.  The
+``parallel.MeshContext``, None for one process) reaches every mixer and
+MLP: ``moe_block`` splits the experts over ``model`` as in the reference,
+and attention, the dense MLP and the SSM split their heads or d_ff over it
+where it divides them (``models/parallel.py``); under it ``params`` is a
+``distributed.sharding.ShardedLM``'s ``view()``, which gathers each
+period's parameters on use and keeps the ``model`` shard of a split
+leaf.  The
 frontends are the reference's stubs: a ``"patch"`` config (the VLM) writes
 precomputed patch embeddings over its first ``n_frontend_tokens`` token
 embeddings, a ``"frame"`` config (the audio encoder) takes precomputed
@@ -53,7 +57,8 @@ from repro_torch.models.layers import (
     mlp_param_shapes,
     rms_norm,
 )
-from repro_torch.models.moe import MeshContext, moe_block, moe_param_shapes
+from repro_torch.models.moe import moe_block, moe_param_shapes
+from repro_torch.models.parallel import MeshContext
 from repro_torch.models.ssm import (
     ssm_block,
     ssm_block_decode,
@@ -284,7 +289,7 @@ def _channel_mix(
     h = rms_norm(x, blk.norm2, cfg.norm_eps)
     if kind == "moe":
         return x + moe_block(blk.mlp, h, cfg, ctx)
-    return x + mlp_block(blk.mlp, h, cfg)
+    return x + mlp_block(blk.mlp, h, cfg, ctx)
 
 
 def _period_forward(
@@ -315,10 +320,11 @@ def _period_forward(
         blk = period[f"pos{i}"]
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
         if mixer == "attn":
-            y, (k, v) = ck(functools.partial(attention_block, positions=positions), blk.mixer, h, cfg)
+            attn = functools.partial(attention_block, positions=positions, ctx=ctx, full_kv=collect_cache)
+            y, (k, v) = ck(attn, blk.mixer, h, cfg)
             carry = {"k": k, "v": v}
         else:
-            y, (state, conv) = ck(ssm_block, blk.mixer, h, cfg)
+            y, (state, conv) = ck(functools.partial(ssm_block, ctx=ctx), blk.mixer, h, cfg)
             carry = {"state": state, "conv": conv}
         if collect_cache:
             caches[f"pos{i}"] = carry
@@ -349,10 +355,10 @@ def _period_decode(
         if mixer == "attn":
             y, _ = attention_block(
                 blk.mixer, h, cfg, positions=positions,
-                kv_cache=(c["k"], c["v"]), cache_pos=cache_pos, kv_len=kv_len,
+                kv_cache=(c["k"], c["v"]), cache_pos=cache_pos, kv_len=kv_len, ctx=ctx,
             )
         else:
-            y, (state, conv) = ssm_block_decode(blk.mixer, h, cfg, (c["state"], c["conv"]))
+            y, (state, conv) = ssm_block_decode(blk.mixer, h, cfg, (c["state"], c["conv"]), ctx)
             c["state"].copy_(state)
             c["conv"].copy_(conv)
         x = x + y

@@ -25,77 +25,14 @@ rank's own tokens.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dot_f32
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshContext:
-    """How model code sees the device mesh (None => single-process local):
-    the ``DeviceMesh``, the axes the batch is split over, and the model
-    axis, whose process group the sharded ``moe_block`` combines over."""
-
-    mesh: object  # torch.distributed.device_mesh.DeviceMesh
-    batch_axes: Tuple[str, ...] = ("data",)
-    model_axis: str = "model"
-
-    @property
-    def model_size(self) -> int:
-        return mesh_sizes(self.mesh)[self.model_axis]
-
-    @property
-    def model_group(self):
-        return self.mesh.get_group(self.model_axis)
-
-    @property
-    def model_rank(self) -> int:
-        return self.mesh.get_local_rank(self.model_axis)
-
-
-class _ToModelRegion(torch.autograd.Function):
-    """Identity forward; the backward sums the cotangent over the model
-    group.  An input every rank of the group holds (the tokens, the
-    router) reaches each rank's experts, so its gradient is the sum of the
-    ranks' partial gradients."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, grad):
-        import torch.distributed as dist
-
-        grad = grad.contiguous()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-class _FromModelRegion(torch.autograd.Function):
-    """The combine: ``all_reduce`` (sum) over the model group forward; the
-    identity backward, since every rank goes on with the same replicated
-    sum.  (``torch.distributed.nn.functional.all_reduce`` would sum the
-    cotangents again, scaling every expert's gradient by the model size.)"""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        import torch.distributed as dist
-
-        t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t, group=group)
-        return t
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
+from repro_torch.models.parallel import into_region, out_of_region
 
 
 def router_probs(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -211,14 +148,12 @@ def moe_block(
         if name in params and params[name].shape[0] != n_local:
             raise ValueError(f"{name} holds {params[name].shape[0]} experts; this rank's shard is "
                              f"{n_local} of {cfg.n_experts}")
-    group = ctx.model_group
     local = dict(params)
-    local["router"] = _ToModelRegion.apply(params["router"], group)
-    y = _moe_local(local, _ToModelRegion.apply(x_flat, group), cfg, cap, n_local,
-                   ctx.model_rank * n_local)
+    local["router"] = into_region(params["router"], ctx)
+    y = _moe_local(local, into_region(x_flat, ctx), cfg, cap, n_local, ctx.model_rank * n_local)
     # Combine in the model dtype, as the reference's psum(y.astype(dt)):
     # each rank's partial sum is an f32 accumulation, the sum over ranks is not.
-    return _FromModelRegion.apply(y.to(dt), group).reshape(B, S, d)
+    return out_of_region(y.to(dt), ctx).reshape(B, S, d)
 
 
 def moe_param_shapes(cfg: ArchConfig) -> dict:

@@ -20,13 +20,22 @@ as the reference's ``preferred_element_type=jnp.float32`` einsums do.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dot_f32, checkpointed, rms_norm
+from repro_torch.models.parallel import (
+    MeshContext,
+    gather_over_model,
+    into_region,
+    model_size,
+    out_of_region,
+    ssm_split,
+    sum_over_model,
+)
 
 
 def _heads(t: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
@@ -140,10 +149,13 @@ def ssm_param_shapes(cfg: ArchConfig) -> dict:
     }
 
 
-def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
-    """z, x, B, C, dt along the last axis (views, no copy)."""
-    di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-    return torch.split(zxbcdt, [di, di, G * N, G * N, H], dim=-1)
+def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor, di: int = None, H: int = None):
+    """z, x, B, C, dt along the last axis (views, no copy); ``di`` and ``H``
+    are this rank's where the heads are split over model."""
+    di = cfg.d_inner if di is None else di
+    H = cfg.ssm_heads if H is None else H
+    GN = cfg.ssm_groups * cfg.ssm_state
+    return torch.split(zxbcdt, [di, di, GN, GN, H], dim=-1)
 
 
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -156,17 +168,72 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return F.silu(out + b)
 
 
-def ssm_block(params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, tuple]:
+def _rank_leaves(params, cfg: ArchConfig, ctx: Optional[MeshContext]):
+    """(leaves, H, d_inner, heads) as this rank's SSM reads them.  Under a
+    ``ctx`` whose model axis splits the heads (``ssm_split``): ``in_proj``'s
+    z, x and dt columns of the rank's heads and all of B and C (G = 1:
+    every head reads them), ``conv_w``/``conv_b`` on the rank's x channels
+    and B, C, ``A_log``/``D``/``dt_bias``/``gate_norm`` on its heads (each
+    gathered whole, so its gradient sums over model), ``out_proj`` its rows
+    (kept shard).  Otherwise the leaves as they are and ``heads`` None."""
+    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+    if not ssm_split(cfg, model_size(ctx)):
+        return params, H, cfg.d_inner, None
+    h0, h1 = ctx.part(H)
+    di, GN = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    x0, x1 = h0 * Pd, h1 * Pd
+    w = params["in_proj"]
+    cols = (w[:, x0:x1], w[:, di + x0 : di + x1], w[:, 2 * di : 2 * di + 2 * GN],
+            w[:, 2 * di + 2 * GN + h0 : 2 * di + 2 * GN + h1])
+
+    def channels(t):  # conv channels x | B | C: the rank's x, all of B and C
+        return torch.cat([t[..., x0:x1], t[..., di:]], dim=-1)
+
+    leaves = dict(in_proj=torch.cat(cols, dim=1), conv_w=channels(params["conv_w"]),
+                  conv_b=channels(params["conv_b"]), A_log=params["A_log"][h0:h1],
+                  D=params["D"][h0:h1], dt_bias=params["dt_bias"][h0:h1],
+                  gate_norm=params["gate_norm"][x0:x1], out_proj=params["out_proj"])
+    return leaves, h1 - h0, x1 - x0, (h0, h1)
+
+
+def _gated_norm(v: torch.Tensor, scale: torch.Tensor, cfg: ArchConfig, ctx, heads) -> torch.Tensor:
+    """The gated RMSNorm over all of d_inner: where the heads are split,
+    each rank's sum of squares of its channels is summed over model
+    (forward and backward, ``sum_over_model``)."""
+    if heads is None:
+        return rms_norm(v, scale, cfg.norm_eps)
+    dt = v.dtype
+    v = v.float()
+    ss = sum_over_model((v * v).sum(dim=-1, keepdim=True), ctx)
+    v = v * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (v * scale.float()).to(dt)
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor, ctx, heads, dt) -> torch.Tensor:
+    """The row-parallel ``out_proj``: f32 partial sums all-reduced, then cast."""
+    out = _dot_f32(y, w)
+    if heads is not None:
+        out = out_of_region(out, ctx)
+    return out.to(dt)
+
+
+def ssm_block(params, x: torch.Tensor, cfg: ArchConfig, ctx: Optional[MeshContext] = None) -> Tuple[torch.Tensor, tuple]:
     """Mamba-2 mixer over a full sequence (prefill).
 
     Returns (y (B,S,d), carry) where carry = (ssd_state, conv_tail) for
-    handing off to incremental decode.
+    handing off to incremental decode.  Under a ``ctx`` that splits the
+    heads (``_rank_leaves``) the scan runs on this rank's H/m heads and the
+    carry holds their state and the conv tail of the rank's channels (x of
+    its heads, then B and C).
     """
     Bb, S, d = x.shape
     dt0 = x.dtype
-    di, G, N, H, Pd = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    params, H, di, heads = _rank_leaves(params, cfg, ctx)
+    G, N, Pd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    if heads is not None:
+        x = into_region(x, ctx)
     zxbcdt = _dot_f32(x, params["in_proj"])  # f32
-    z, xr, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
+    z, xr, Bm, Cm, dt = _split_proj(cfg, zxbcdt, di, H)
     # Activation streams (z, x, B, C) live in the model dtype; only the dt
     # path, the decay chain and the SSD state stay f32.
     z = z.to(dt0)
@@ -199,35 +266,53 @@ def ssm_block(params, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, t
     else:
         y, ssd_state = ssd_chunked(xh, dtv, A, Bg, Cg, D, chunk=chunk)
     y = y[:, :S].reshape(Bb, S, di).to(dt0)
-    y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    out = _dot_f32(y, params["out_proj"]).to(dt0)
+    y = _gated_norm(y * F.silu(z), params["gate_norm"], cfg, ctx, heads)
+    out = _out_proj(y, params["out_proj"], ctx, heads, dt0)
     # conv tail: last (K-1) *pre-conv* channel values, for incremental decode
     K = cfg.ssm_conv
-    _, xr_t, Bm_t, Cm_t, _ = _split_proj(cfg, zxbcdt[:, -(K - 1) :, :])
+    _, xr_t, Bm_t, Cm_t, _ = _split_proj(cfg, zxbcdt[:, -(K - 1) :, :], di, H)
     conv_tail = torch.cat([xr_t, Bm_t, Cm_t], dim=-1)  # (B,K-1,conv_dim) f32
     return out, (ssd_state, conv_tail)
 
 
-def ssm_block_decode(params, x: torch.Tensor, cfg: ArchConfig, carry) -> Tuple[torch.Tensor, tuple]:
+def ssm_block_decode(
+    params, x: torch.Tensor, cfg: ArchConfig, carry, ctx: Optional[MeshContext] = None
+) -> Tuple[torch.Tensor, tuple]:
     """One-token Mamba-2 step.  x (B,1,d); carry (ssd_state, conv_tail).
-    Returns (y (B,1,d), (new_state, new_tail)), both new tensors."""
+    Returns (y (B,1,d), (new_state, new_tail)), both new tensors.
+
+    Under a ``ctx`` that splits the heads the step runs on this rank's
+    heads.  ``ssd_state`` holds the rank's heads (updated as they are) or
+    every head (the rank's read; the new state of every head gathered over
+    the model group).  ``conv_tail`` holds every channel: the rank convolves
+    its own, and the new token's x channels of every head are gathered over
+    the model group so the new tail holds every channel too."""
     Bb, S, d = x.shape
     assert S == 1
     dt0 = x.dtype
-    di, G, N, H, Pd = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    params, H, di, heads = _rank_leaves(params, cfg, ctx)
+    G, N, Pd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
     ssd_state, conv_tail = carry
     zxbcdt = _dot_f32(x, params["in_proj"])
-    z, xr, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
-    xBC_new = torch.cat([xr, Bm, Cm], dim=-1)  # (B,1,conv_dim) f32
-    window = torch.cat([conv_tail, xBC_new], dim=1)  # (B,K,conv_dim)
+    z, xr, Bm, Cm, dt = _split_proj(cfg, zxbcdt, di, H)
+    if heads is None:
+        window = torch.cat([conv_tail, torch.cat([xr, Bm, Cm], dim=-1)], dim=1)  # (B,K,conv_dim) f32
+        mine = window
+    else:
+        xr_all = gather_over_model(xr, ctx, 2)
+        window = torch.cat([conv_tail, torch.cat([xr_all, Bm, Cm], dim=-1)], dim=1)
+        x0 = heads[0] * Pd
+        mine = torch.cat([window[..., x0 : x0 + di], window[..., cfg.d_inner :]], dim=-1)
     w = params["conv_w"].float()
-    out = (window * w[None, :, :]).sum(dim=1, keepdim=True)
+    out = (mine * w[None, :, :]).sum(dim=1, keepdim=True)
     xBC = F.silu(out + params["conv_b"].float())
     xr2, Bm2, Cm2 = torch.split(xBC[:, 0], [di, G * N, G * N], dim=-1)
     dtv = F.softplus(dt[:, 0] + params["dt_bias"].float())  # (B,H)
     A = -torch.exp(params["A_log"].float())
-    y, ssd_state = ssd_decode_step(
-        ssd_state,
+    every = heads is not None and ssd_state.shape[1] == cfg.ssm_heads
+    state = ssd_state[:, heads[0] : heads[1]] if every else ssd_state
+    y, state = ssd_decode_step(
+        state,
         xr2.reshape(Bb, H, Pd),
         dtv,
         A,
@@ -235,10 +320,12 @@ def ssm_block_decode(params, x: torch.Tensor, cfg: ArchConfig, carry) -> Tuple[t
         Cm2.reshape(Bb, G, N),
         params["D"].float(),
     )
+    if every:
+        state = gather_over_model(state, ctx, 1)
     y = y.reshape(Bb, 1, di)
-    y = rms_norm((y * F.silu(z)).to(dt0), params["gate_norm"], cfg.norm_eps)
-    out = _dot_f32(y, params["out_proj"]).to(dt0)
-    return out, (ssd_state, window[:, 1:, :])
+    y = _gated_norm((y * F.silu(z)).to(dt0), params["gate_norm"], cfg, ctx, heads)
+    out = _out_proj(y, params["out_proj"], ctx, heads, dt0)
+    return out, (state, window[:, 1:, :])
 
 
 def ssm_empty_carry(cfg: ArchConfig, batch: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -28,8 +28,19 @@ BLOCK_CAPACITY = 1.0
 TABLE_ARCHS = [PHI, JAMBA]  # the parameter tables held on (2, 2)
 
 
+# reduced danube with grouped kv heads, named "<arch>@<H>x<KV>": on a model
+# axis of 2, 2 kv heads split with the query heads, 1 kv head is gathered
+# and each rank takes its columns (the gradient summed over model), and 3
+# query heads do not split, so attention runs whole on every rank
+DANUBE_KV2, DANUBE_KV1, DANUBE_H3 = f"{DANUBE}@4x2", f"{DANUBE}@4x1", f"{DANUBE}@3x1"
+
+
 def case_cfg(configs, arch: str, dtype: str = "float32", **kw):
-    """The reduced config of ``arch`` from either package's ``configs``."""
+    """The reduced config of ``arch`` from either package's ``configs``;
+    ``<arch>@<H>x<KV>`` sets its query and kv heads."""
+    arch, _, heads = arch.partition("@")
+    if heads:
+        kw["n_heads"], kw["n_kv_heads"] = map(int, heads.split("x"))
     return dataclasses.replace(configs.reduce_for_smoke(configs.get(arch)), dtype=dtype, **kw)
 
 
@@ -73,7 +84,8 @@ def sharded_block_rank(rank: int, world: int, n_data: int, n_model: int):
     )
     from repro_torch.launch.mesh import mesh_sizes
     from repro_torch.models.model import param_shapes
-    from repro_torch.models.moe import MeshContext, moe_block
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.parallel import MeshContext
 
     mesh, rules = _mesh_and_rules(n_data, n_model)
     ctx = MeshContext(mesh, batch_axes=("data",))
@@ -138,15 +150,69 @@ def _leaves(specs, shapes, prefix=""):
 # its own tokens, so only without drops do the two compute the same
 # function.
 # ---------------------------------------------------------------------------
-SERVE_CASES = [(PHI, 2), (PHI, 1), (DANUBE, 2), (JAMBA, 2)]  # (arch, global batch)
+SERVE_CASES = [(PHI, 2), (PHI, 1), (DANUBE, 2), (JAMBA, 2),  # (arch, global batch)
+               (DANUBE_KV2, 2), (DANUBE_KV1, 2), (DANUBE_H3, 2), (DANUBE_KV2, 1)]
 SERVE_S, SERVE_NEW, NO_DROP_CAPACITY = 16, 4, 4.0
 ENCODE_B, ENCODE_S = 2, 16
 SEED = 3
 
 
 def serve_cfg(configs, arch: str):
-    kw = {"capacity_factor": NO_DROP_CAPACITY} if configs.get(arch).n_experts else {}
+    kw = {"capacity_factor": NO_DROP_CAPACITY} if configs.get(arch.partition("@")[0]).n_experts else {}
     return case_cfg(configs, arch, **kw)
+
+
+class LayerWidths:
+    """While in use, records the widths the layers compute on: the query
+    heads each attention core sees (the flash entry point, the chunked and
+    the plain attention), the heads of each SSD scan (the scan entry point
+    and the chunked scan) and the hidden width of each dense MLP (its
+    ``w_down`` rows)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import layers, model, ssm
+
+        self.seen = {"attn_heads": set(), "ssd_heads": set(), "mlp_hidden": set()}
+        self._saved = []
+
+        def spy(mod, name, kind, width):
+            orig = getattr(mod, name)
+
+            def wrapped(*a, **k):
+                self.seen[kind].add(width(*a))
+                return orig(*a, **k)
+
+            self._saved.append((mod, name, orig))
+            setattr(mod, name, wrapped)
+
+        heads = lambda t, *a: t.shape[2]  # noqa: E731
+        for mod, name in ((ops, "flash_attention"), (layers, "plain_attention"), (layers, "chunked_attention")):
+            spy(mod, name, "attn_heads", heads)
+        for mod, name in ((ops, "ssd_scan"), (ssm, "ssd_chunked")):
+            spy(mod, name, "ssd_heads", heads)
+        spy(model, "mlp_block", "mlp_hidden", lambda params, *a: params["w_down"].shape[0])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
+
+    def put(self, out: dict, key: str) -> None:
+        for kind, widths in self.seen.items():
+            out[f"{key}|seen|{kind}"] = np.array(sorted(widths), dtype=np.int64)
+
+
+def no_redistribution() -> None:
+    """DTensor's ``redistribute`` made to raise in this rank: every step
+    must move data by c10d collectives alone (DTensor's all-gather killed a
+    gloo rank on CUDA tensors)."""
+    from torch.distributed.tensor import DTensor
+
+    def refuse(self, *a, **k):
+        raise AssertionError("a rules-aware step reached DTensor.redistribute")
+
+    DTensor.redistribute = refuse
 
 
 def serve_prompt(cfg, B: int) -> np.ndarray:
@@ -181,7 +247,9 @@ def steps_rank(rank: int, world: int):
     """Every serving case through the rules-aware steps on (2, 2): greedy
     tokens and logits (gathered to the global batch), each decode cache
     shard's shape against ``state_shardings``; hubert's encoder logits; and
-    the loss of one ``make_train_step`` with the rules (phi3.5-moe, batch 2)."""
+    the loss of one ``make_train_step`` with the rules (phi3.5-moe, batch
+    2); for each, the widths its layers computed on (``LayerWidths``).
+    DTensor's ``redistribute`` raises in this rank throughout."""
     import torch
 
     from repro_torch import configs
@@ -196,13 +264,14 @@ def steps_rank(rank: int, world: int):
     from repro_torch.serving.engine import grow_kv
     from repro_torch.training.optimizer import OptSettings, adamw_init
 
+    no_redistribution()
     mesh, rules = _mesh_and_rules(2, 2)
     out = {}
 
     def rows(t, B):
         """The global (B, ...) tensor of which ``t`` is this rank's rows."""
         spec = batch_spec(rules, B, t.ndim - 1)
-        return from_local(t.contiguous(), mesh, placements(spec, mesh), (B, *t.shape[1:])).full_tensor()
+        return gather(from_local(t.contiguous(), mesh, placements(spec, mesh), (B, *t.shape[1:])))
 
     for arch, global_b in SERVE_CASES:
         cfg = serve_cfg(configs, arch)
@@ -210,39 +279,57 @@ def steps_rank(rank: int, world: int):
         prompt = torch.from_numpy(serve_prompt(cfg, global_b))
         prefill = make_prefill_step(cfg, rules, global_b)
         decode = make_decode_step(cfg, rules, global_b)
-        def grow(state, n, B=global_b, cfg=cfg):
-            """Gathered to this rank's rows, grown, laid out again."""
+        def layout(key, caches, kv_len, B, S, cfg):
+            """Whether each shard of a decode state has the shape
+            ``state_shardings`` gives this rank, and its whole the global
+            shape."""
+            want, kv_spec = state_shardings(rules, cfg, init_decode_state(cfg, B, S, device="meta"))
+            coord = mesh.get_coordinate()
+            for pos, sub in caches.items():
+                for name, dt in sub.items():
+                    sl = local_slices(want[pos][name], dt.shape, mesh_sizes(mesh), coord)
+                    out[f"{key}|{pos}/{name}"] = np.array(
+                        [tuple(dt.to_local().shape) == tuple(s.stop - s.start for s in sl),
+                         tuple(dt.shape) == (cfg.n_periods, B, *dt.shape[2:])])
+            out[f"{key}|kv_len"] = np.array(
+                [tuple(kv_len.to_local().shape) == tuple(
+                    s.stop - s.start for s in local_slices(kv_spec, (B,), mesh_sizes(mesh), coord))])
+
+        def grow(state, n, B=global_b, cfg=cfg, key=f"{arch}|{global_b}|layout|prefill"):
+            """Gathered to this rank's rows, grown, laid out again; the
+            prefill's own layout recorded first."""
             caches, kv_len = state
+            layout(key, caches, kv_len, B, SERVE_S, cfg)
             held = {pos: {name: gather(t, keep_dims=(1,)) for name, t in sub.items()}
                     for pos, sub in caches.items()}
             return shard_state(rules, cfg, (grow_kv(held, n), kv_len.to_local()), B)
 
-        toks, logits, (caches, kv_len) = greedy(prefill, decode, model, prompt, SERVE_NEW,
-                                                lambda t, B=global_b: rows(t, B), grow)
         key = f"{arch}|{global_b}"
+        with LayerWidths() as widths:
+            toks, logits, (caches, kv_len) = greedy(prefill, decode, model, prompt, SERVE_NEW,
+                                                    lambda t, B=global_b: rows(t, B), grow)
+        widths.put(out, key)
         out[f"{key}|tokens"] = toks.numpy()
         out[f"{key}|logits"] = logits.numpy()
-        want, kv_spec = state_shardings(rules, cfg, init_decode_state(cfg, global_b, SERVE_S + SERVE_NEW,
-                                                                      device="meta"))
-        coord = mesh.get_coordinate()
-        for pos, sub in caches.items():
-            for name, dt in sub.items():
-                sl = local_slices(want[pos][name], dt.shape, mesh_sizes(mesh), coord)
-                out[f"{key}|layout|{pos}/{name}"] = np.array(
-                    [tuple(dt.to_local().shape) == tuple(s.stop - s.start for s in sl),
-                     tuple(dt.shape) == (cfg.n_periods, global_b, *dt.shape[2:])])
-        out[f"{key}|layout|kv_len"] = np.array(
-            [tuple(kv_len.to_local().shape) == tuple(
-                s.stop - s.start for s in local_slices(kv_spec, (global_b,), mesh_sizes(mesh), coord))])
+        layout(f"{key}|layout", caches, kv_len, global_b, SERVE_S + SERVE_NEW, cfg)
     cfg = case_cfg(configs, HUBERT)
     model = ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules)
-    enc = make_encoder_step(cfg, rules, ENCODE_B)(model, {"frame_embeds": torch.from_numpy(encode_frames(cfg))})
+    with LayerWidths() as widths:
+        enc = make_encoder_step(cfg, rules, ENCODE_B)(model, {"frame_embeds": torch.from_numpy(encode_frames(cfg))})
+    widths.put(out, HUBERT)
     out[f"{HUBERT}|logits"] = rows(enc, ENCODE_B).numpy()
     cfg = serve_cfg(configs, PHI)
     model = ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules, trainable=True)
     batch = {k: torch.from_numpy(v).long() for k, v in train_batch(cfg, 2).items()}
-    loss, _, _ = make_train_step(cfg, OptSettings(), rules, 2)(model, adamw_init(model, OptSettings()), batch)
+    with LayerWidths() as widths:
+        loss, _, _ = make_train_step(cfg, OptSettings(), rules, 2)(model, adamw_init(model, OptSettings()), batch)
+    widths.put(out, "train")
     out["train_loss"] = loss.numpy()
+    try:
+        from_local(torch.zeros(2), mesh, placements(("data",), mesh), (4,)).full_tensor()
+        out["redistribute_refused"] = np.array(False)
+    except AssertionError:
+        out["redistribute_refused"] = np.array(True)
     return out
 
 
@@ -253,7 +340,7 @@ def steps_rank(rank: int, world: int):
 # takes the whole batch).  Weights from DecoderLM.from_config's seed.
 # ---------------------------------------------------------------------------
 MAMBA = "mamba2-130m"
-TRAIN_ARCHS = [DANUBE, PHI, MAMBA]
+TRAIN_ARCHS = [DANUBE, PHI, MAMBA, DANUBE_KV1]
 TRAIN_BATCHES = [4, 1]
 TRAIN_S, TRAIN_STEPS = 32, 2
 TRAIN_CLIP = 0.05  # under every case's gradient norm (the tests check), so the clip binds
@@ -309,12 +396,15 @@ def train_rank(rank: int, world: int, ckpt_in: str, ckpt_out: str):
     microbatches, masked labels with 1 and 2 microbatches); each shard's
     reduced gradient of the default and masked runs and the global gradient
     norm; a leaf whose dim 0 is split over both axes, gathered, and its
-    gradient under a cotangent of ``rank + 1`` times the leaf; every gathered gradient before its reduction (``gather_on_use``
-    is spied on), one forward and backward of the first step; a checkpoint
-    of the trained shards written to ``ckpt_out/<arch>``, with the bytes of
-    whole leaves alive on the device at once while it saves and the bytes
-    each rank copies to the host; and the shards and moments restored from
-    the single-process checkpoint in ``ckpt_in/<arch>``."""
+    gradient under a cotangent of ``rank + 1`` times the leaf; the gradient
+    of every leaf gathered whole and sliced over model, before its
+    reduction (``gather_on_use`` is spied on), one forward and backward of
+    the first step; a checkpoint of the trained shards written to
+    ``ckpt_out/<arch>``, with the bytes of whole leaves alive on the device
+    at once while it saves and the bytes each rank copies to the host; and
+    the shards and moments restored from the single-process checkpoint in
+    ``ckpt_in/<arch>``.  DTensor's ``redistribute`` raises in this rank
+    throughout."""
     import weakref
 
     import torch
@@ -326,6 +416,7 @@ def train_rank(rank: int, world: int, ckpt_in: str, ckpt_out: str):
     from repro_torch.training import checkpoint
     from repro_torch.training.optimizer import OptSettings, adamw_init
 
+    no_redistribution()
     mesh, rules = _mesh_and_rules(*TRAIN_MESH)
     out = {"coord": np.array(mesh.get_coordinate())}
 
@@ -412,7 +503,7 @@ def train_rank(rank: int, world: int, ckpt_in: str, ckpt_out: str):
 
             def spy(local, mesh_, layout, sum_axes):
                 t = plain(local, mesh_, layout, sum_axes)
-                if t.requires_grad and not layout.keep:
+                if t.requires_grad and not layout.keep and not layout.summed_over:
                     t.retain_grad()
                     seen.setdefault(id(layout), t)  # the forward's, not a recompute's
                 return t

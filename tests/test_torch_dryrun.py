@@ -17,7 +17,9 @@ rank's ``local_slices`` of every parameter and moment, no collective bytes on
 (1, 1), and on (1, 1) the FLOPs that ``count_step`` counts over the port's
 single-process step on real CPU tensors; and one full-size cell (danube
 ``train_4k`` on the 16 x 16 production mesh, in one microbatch) completing on
-the CPU, which it could not if anything were materialised.
+the CPU, which it could not if anything were materialised; and on a fake
+(1, 2) group, reduced danube's train step counting the layers outside the
+period stack whole and 1/2 of the stack (tensor parallelism on model).
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun.py
 """
@@ -112,6 +114,22 @@ def test_count_step_counts_a_product_and_skips_views():
     # reads and writes 8x4
     assert c.hbm_bytes == 4 * (8 * 16 + 16 * 4 + 8 * 4) + 4 * 2 * (8 * 4)
     assert c.collective_bytes == 0 and c.collectives == {}
+
+
+def test_peak_leaves_out_meta_tensors():
+    """A meta tensor holds no memory: the dry-run's peak counts the devices'
+    bytes only (meta stand-ins of the global decode state, which the
+    prefill's ``shard_state`` once made, alone made a prefill_32k cell's
+    peak hundreds of GB)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    from repro_torch.launch.dryrun import _peak_bytes
+
+    tracker = MemTracker()
+    with tracker:
+        held = torch.ones(1024)
+        stand_in = torch.empty(1 << 30, device="meta")
+    assert _peak_bytes(tracker) == held.numel() * 4, stand_in.shape
 
 
 def _single_process_flops(arch, shape_name):
@@ -225,6 +243,45 @@ def test_dryrun_smoke_cell(smoke_cells, arch, shape_name, mesh):
     elif shape_name == "train_4k":
         assert r["collectives"]["all-gather"]["count"] > 0
         assert r["collectives"]["reduce-scatter"]["count"] > 0
+
+
+def _single_process_flops_at(arch, shape_name, layers):
+    """``_single_process_flops`` of the smoke cell cut to ``layers`` layers."""
+    cfg, shape = cell_config(arch, shape_name, smoke=True)
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = TM.DecoderLM.from_config(cfg, seed=0, device="cpu", trainable=True)
+    step, _, _ = step_for_cell(cfg, shape)
+    structs = batch_structs(cfg, shape, with_labels=True)
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in structs.items()}
+    return count_step(step, model, adamw_init(model, OptSettings.auto(cfg.param_count())), batch)[1].flops
+
+
+@pytest.mark.slow
+def test_tensor_parallel_rank_counts_its_share_of_the_layers():
+    """Reduced danube's train step on a fake (data 1, model 2) group: rank
+    0's FLOPs are those of ``embed``, ``head``, the CE and the norms (which
+    run whole on every rank) plus 1/2 of the period stack's, within 10%.
+    The stack's count is the single process's at 2 layers less its count at
+    1 layer, twice; the rest is what is left at 2 layers.  A rank that ran
+    every layer whole (the replicated layers before tensor parallelism)
+    counts the whole stack, which the check tells apart."""
+    arch, shape_name = "h2o-danube-3-4b", "train_4k"
+    f1, f2 = (_single_process_flops_at(arch, shape_name, n) for n in (1, 2))
+    stack = 2 * (f2 - f1)
+    rest = f2 - stack
+    want = rest + stack / 2
+    code = ("import json; from repro_torch.launch.dryrun import run_cell; "
+            f"print(json.dumps(run_cell({arch!r}, {shape_name!r}, False, verbose=False, "
+            "mesh_shape=(1, 2), smoke=True)))")
+    p = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    d = json.loads(p.stdout.strip().splitlines()[-1])
+    got = d["roofline"]["hlo_flops"] / d["roofline"]["chips"]
+    assert d["status"] == "ok" and d["roofline"]["chips"] == 2
+    assert abs(got - want) <= 0.1 * want, (got, want, rest, stack)
+    replicated = rest + stack
+    assert abs(replicated - want) > 0.1 * want, (replicated, want)
 
 
 @pytest.mark.slow

@@ -39,6 +39,7 @@ import _torch_rank_cases as C  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.distributed.ranks import run_ranks  # noqa: E402
 from repro_torch.models import moe as TMoE  # noqa: E402
+from repro_torch.models.parallel import MeshContext  # noqa: E402
 
 pytestmark = pytest.mark.slow  # compiles XLA programs and starts processes
 
@@ -179,7 +180,7 @@ def test_block_cases_drop_tokens(arch, mesh):
 def test_n_experts_must_divide_the_model_axis():
     cfg = C.case_cfg(tconfigs, C.PHI, capacity_factor=C.BLOCK_CAPACITY)
     params, x, _ = C.block_inputs(cfg)
-    ctx = TMoE.MeshContext(mesh=type("Mesh", (), {"shape": {"data": 1, "model": 3}})())
+    ctx = MeshContext(mesh=type("Mesh", (), {"shape": {"data": 1, "model": 3}})())
     tp = {k: torch.from_numpy(v) for k, v in params.items()}
     with pytest.raises(ValueError, match="not divisible by model axis 3"):
         TMoE.moe_block(tp, torch.from_numpy(x), cfg, ctx)

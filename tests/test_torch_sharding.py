@@ -169,8 +169,9 @@ def test_batch_spec_equals_reference(mesh_id):
 def test_cell_specs_equal_reference(arch, mesh_id):
     """At every full-size cell of the id: ``input_specs`` with rules (the
     batch's ``input_shardings``, the decode state's ``state_shardings``,
-    the tokens'), the mesh context's batch axes, the activation spec and
-    ``auto_microbatches``."""
+    the tokens'), the mesh context's batch axes (the port's context exists
+    wherever the model axis is over 1 as well: its tensor-parallel layers
+    read it), the activation spec and ``auto_microbatches``."""
     r_rules, t_rules = _rules(mesh_id)
     rcfg, tcfg = rconfigs.get(arch), tconfigs.get(arch)
     for rshape, tshape in _cells(arch):
@@ -195,9 +196,14 @@ def test_cell_specs_equal_reference(arch, mesh_id):
             assert _norm(t.spec) == _norm(r.sharding.spec), (tshape.name, r.shape)
         r_ctx = RSt.make_mesh_context(r_rules, rcfg, B)
         t_ctx = TSt.make_mesh_context(t_rules, tcfg, B)
-        assert (t_ctx is None) == (r_ctx is None) == ("moe" not in tcfg.mlp_pattern)
-        if t_ctx is not None:
+        # the reference's context carries its MoE shard_map; the port's also
+        # carries the tensor-parallel layers, wherever the model axis is over 1
+        assert (r_ctx is None) == ("moe" not in tcfg.mlp_pattern)
+        assert (t_ctx is None) == (r_ctx is None and t_rules.model_size == 1)
+        if r_ctx is not None:
             assert t_ctx.batch_axes == r_ctx.batch_axes and t_ctx.model_size == r_ctx.model_size
+        if t_ctx is not None:
+            assert t_ctx.batch_axes == TSt._fitting_batch_axes(t_rules, B)
         assert _norm(TSt.act_partition_spec(t_rules, B)) == _norm(RSt.act_partition_spec(r_rules, B))
         assert TSt.auto_microbatches(tcfg, tshape, t_rules) == RSt.auto_microbatches(rcfg, rshape, r_rules)
 

@@ -9,14 +9,20 @@ rank group of four CPU processes (``run_ranks``, gloo over a file store)
 runs every case (``_torch_rank_cases.steps_rank``); this process never
 joins a process group.
 
-Held: greedy tokens of reduced phi3.5-moe (batch 2, and batch 1, which
-divides no data axis), danube and jamba through ``make_prefill_step`` and
-``make_decode_step`` with rules, exactly equal to the single-process run
+Every step runs tensor-parallel on model (``models/parallel.py``), with
+DTensor's ``redistribute`` made to raise in the ranks.  Held: greedy tokens
+of reduced phi3.5-moe (batch 2, and batch 1, which divides no data axis),
+danube, jamba and danube with grouped kv heads (4 over 2, at batch 2 and 1;
+4 over 1, gathered; 3 over 1, which do not split) through
+``make_prefill_step`` and ``make_decode_step`` with rules, exactly equal to
+the single-process run
 (tests/test_serving.py:51's standard), with their logits at 2e-3; each
 rank's decode-cache shards shaped as ``state_shardings`` lays them out;
 hubert's ``make_encoder_step`` logits at 2e-3; and ``make_train_step`` with
 the rules running, its loss the single process's at 2e-3
-(tests/test_torch_sharded_train.py holds the sharded step in full).  The MoE
+(tests/test_torch_sharded_train.py holds the sharded step in full); and
+the widths each rank's layers compute on (H/2 query heads, H_ssm/2 SSD
+heads, d_ff/2).  The MoE
 configs run at a capacity that drops no token
 (``_torch_rank_cases.NO_DROP_CAPACITY``): a data shard's capacity is that of
 its own tokens, the single process's that of the global batch.
@@ -88,6 +94,42 @@ def test_encoder_logits_match_single_process(ranks):
     want = make_encoder_step(cfg)(model, {"frame_embeds": torch.from_numpy(C.encode_frames(cfg))})
     for r in ranks:
         np.testing.assert_allclose(r[f"{C.HUBERT}|logits"], want.numpy(), atol=TOL, rtol=TOL)
+
+
+def _want_widths(cfg, m=2):
+    """The widths a rank's layers compute on, on a model axis of ``m``: H/m
+    query heads, H_ssm/m SSD heads and d_ff/m where the axis divides them,
+    all of them where it does not."""
+    def part(n):
+        return n // m if n % m == 0 else n
+
+    return {"attn_heads": [part(cfg.n_heads)] if "attn" in cfg.period else [],
+            "ssd_heads": [part(cfg.ssm_heads)] if "ssm" in cfg.period else [],
+            "mlp_hidden": [part(cfg.d_ff)] if "mlp" in cfg.mlp_pattern else []}
+
+
+WIDTH_CASES = [(f"{a}|{b}", C.serve_cfg(tconfigs, a)) for a, b in C.SERVE_CASES] + [
+    (C.HUBERT, C.case_cfg(tconfigs, C.HUBERT)), ("train", C.serve_cfg(tconfigs, C.PHI))]
+
+
+@pytest.mark.parametrize("key,cfg", WIDTH_CASES, ids=[k.replace("|", "-B") for k, _ in WIDTH_CASES])
+def test_layers_compute_on_this_ranks_share(ranks, key, cfg):
+    """Tensor-parallel on model 2: each rank's attention core sees H/2 query
+    heads (3 heads do not split: all 3), its SSD scan H_ssm/2 heads and its
+    dense MLP a hidden width of d_ff/2, in prefill, decode, encode and
+    training."""
+    want = _want_widths(cfg)
+    assert cfg.n_heads != 3 or want["attn_heads"] == [3]
+    for r in ranks:
+        for kind, widths in want.items():
+            assert r[f"{key}|seen|{kind}"].tolist() == widths, kind
+
+
+def test_steps_never_redistribute(ranks):
+    """Every case above ran with DTensor's ``redistribute`` made to raise in
+    the ranks (``_torch_rank_cases.no_redistribution``)."""
+    for r in ranks:
+        assert bool(r["redistribute_refused"])
 
 
 def test_train_step_with_rules_raises(ranks):
