@@ -22,7 +22,11 @@ its check does not hold:
    one computes the same function (SDPA for attention — with ``is_causal``
    and no mask unless the window bites, ``library_path`` says which — the
    yardstick, never used by the port; none for the SSD scan) and the card's
-   bound;
+   bound; the SSD sweep also runs past the zoo's widths, as the Pallas
+   kernel takes them: P 128 at N 128 (bf16, the tensor cores on two P
+   tiles), P 128 at N 256 and P 80 at N 136 (bf16 and f32, the CUDA-core
+   kernel on tiles of 64 rows, f32 held against the plain version in
+   float64), each with its bound at the tile and at the chunk;
 4. serve h2o-danube-3-4b at full width from seeded random weights drawn on
    the card: f32 prefill through the CUDA-core kernel against the non-kernel
    path and prefill against step-by-step decode, then its main path — a bf16
@@ -86,7 +90,10 @@ its check does not hold:
    one-process step on the card at 2e-3, with the c10d collectives that
    gather the shards and reduce the gradients (``gather``, ``reduce``),
    and danube cut to 2 layers again on data 1 x model 2, its attention
-   heads and d_ff split over the two ranks (the tensor-parallel backward);
+   heads and d_ff split over the two ranks (the tensor-parallel backward),
+   with each rank's head product and CE on its V/2 vocabulary columns and
+   its embedding lookup on V/2 rows where the model axis is 2 (the head
+   columns and embedding rows each rank saw, checked and printed);
    after ``train_sharded``, ``tp_serve``: tensor-parallel serving on two
    gloo ranks of the card (mesh data 1 x model 2, each rank on half of the
    heads and d_ff): (a) danube f32 at full width cut to 2 layers,
@@ -100,6 +107,9 @@ its check does not hold:
    B 1 x S 8192, the SSD scan on 128 heads a rank, held against its plain
    version on its inputs, and the f32 layer within 2e-3 of one process
    (``tp_serve`` lines; the kernel sweeps have rows at a rank's shapes);
+   in (a) and (b) each rank's head and embedding on its 16000 of danube's
+   32000 vocabulary rows, the logit columns gathered by the steps (the
+   head columns each rank saw, checked and printed);
    the lm-100m example at
    its defaults (300 f32 steps), whose loss must fall; and a checkpoint
    round trip at lm-test size, bit for bit;
@@ -423,6 +433,14 @@ SSD_SHAPES = [
     ("jamba width, chunk 256, f32", 1, 8192, 256, 64, 1, 128, 256, torch.float32, False),
     # a rank's heads in tp_serve (c) (model 2): jamba's 256 halved
     ("tp_serve (c): a rank's jamba heads, chunk 256", 1, 8192, 128, 64, 1, 128, 256, torch.bfloat16, True),
+    # past the zoo's widths, as the Pallas kernel takes them: P in tiles of 64
+    # (both kernels), N 256 in tiles of 64 rows (the CUDA-core kernel, which
+    # the rule picks for bf16 past N 128 too)
+    ("wide heads: P 128, N 128", 2, 2048, 16, 128, 1, 128, 128, torch.bfloat16, True),
+    ("wide: P 128, N 256", 2, 2048, 16, 128, 1, 256, 128, torch.bfloat16, True),
+    ("wide: P 128, N 256, f32", 2, 2048, 16, 128, 1, 256, 128, torch.float32, False),
+    ("ragged P tile: P 80, N 136", 1, 512, 4, 80, 1, 136, 128, torch.bfloat16, False),
+    ("ragged P tile: P 80, N 136, f32", 1, 512, 4, 80, 1, 136, 128, torch.float32, False),
 ]
 NO_LIBRARY_SSD = "none: no single PyTorch call computes the SSD scan"
 
@@ -451,18 +469,30 @@ def ssd_checks(ssd) -> list:
     rows = []
     for name, B, S, H, P, G, N, chunk, dtype, strided in SSD_SHAPES:
         args = ssd_inputs(g, B, S, H, P, G, N, dtype, strided)
-        tc = dtype == torch.bfloat16  # the dtype rule (all these inputs are aligned)
+        tc = ssd._variant_of(args[0], args[3], args[4]) == ssd.TENSOR_CORE  # the rule
+        check(tc == (dtype == torch.bfloat16 and N <= ssd.N_TC_MAX), f"SSD {name}: the rule picked "
+              f"{'tensor_core' if tc else 'cuda_core'}")
         kern = ssd.ssd_scan_tc if tc else ssd.ssd_scan_cuda_core
         before = kern.launches
         y, st = ssd.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
         launched(kern, before, f"SSD {name}")
-        want_y, want_st = ssd.ssd_scan_plain(*args, chunk=chunk)
+        # f32 past N 128 against the plain version in float64: |y| reaches
+        # hundreds there, and two f32 summation orders part by more than
+        # 2e-4 where y cancels (tests/test_torch_ssd_chunk.py::exact_scan)
+        exact = dtype == torch.float32 and N > ssd.N_TC_MAX
+        want_y, want_st = ssd.ssd_scan_plain(*args, chunk=chunk,
+                                             precision=torch.float64 if exact else torch.float32)
         tol = SSD_TOL[dtype]
         ok_y, err_y, share_y = close(y, want_y, tol)
         ok_s, err_s, share_s = close(st, want_st, tol)
         check(ok_y and ok_s, f"SSD kernel disagrees with plain at {name}: "
                              f"max abs err y {err_y}, state {err_s} (tol {tol})")
+        f32_share = None
+        if exact:  # the share against the f32 plain version, for the record
+            fy, fst = ssd.ssd_scan_plain(*args, chunk=chunk)
+            f32_share = max(close(y, fy, tol)[2], close(st, fst, tol)[2])
+            del fy, fst
         run = lambda: kern(*args, chunk=chunk)  # noqa: E731
         prev_share = None
         if tc:
@@ -478,7 +508,7 @@ def ssd_checks(ssd) -> list:
         plain_ms = time_ms(lambda: ssd.ssd_scan_plain(*args, chunk=chunk), 3)
         # the bound of the work the kernels do (sub-tiles of ``tile`` rows),
         # the smaller one; the reference's whole-chunk work beside it
-        tile = ssd.ssd_tile(chunk)
+        tile = ssd.ssd_tile(chunk, N)
         bound_ms, bound_by = ssd_bound(B, S, H, P, G, N, tile, dtype)
         bound_chunk_ms, bound_chunk_by = ssd_bound(B, S, H, P, G, N, chunk, dtype)
         row = dict(
@@ -487,6 +517,7 @@ def ssd_checks(ssd) -> list:
             variant=ssd.TENSOR_CORE if tc else ssd.CUDA_CORE,
             max_abs_err=max(err_y, err_s), max_abs_err_y=err_y, max_abs_err_state=err_s, tol=tol,
             tol_share=max(share_y, share_s), previous_tol_share=prev_share,
+            plain_precision="float64" if exact else "float32", f32_plain_tol_share=f32_share,
             ms=kernel_ms, previous_ms=previous_ms, plain_ms=plain_ms, library_ms=None,
             library=NO_LIBRARY_SSD, bound_ms=bound_ms, bound_by=bound_by,
             bound_ms_at_chunk=bound_chunk_ms, bound_at_chunk_by=bound_chunk_by,
@@ -1430,6 +1461,45 @@ class StepSpy:
         self.steps.adamw_update = self.orig
 
 
+class VocabWidths:
+    """While in use, records the columns of each head product and the rows
+    of each embedding table looked up (``models.model.head_logits``,
+    ``embed_tokens``): V/m a rank where the vocabulary splits over model."""
+
+    def __enter__(self):
+        from repro_torch.models import model
+
+        self.model, self.orig = model, (model.head_logits, model.embed_tokens)
+        self.head_cols, self.embed_rows = set(), set()
+
+        def head(hidden, w, *a, **k):
+            self.head_cols.add(int(w.shape[1]))
+            return self.orig[0](hidden, w, *a, **k)
+
+        def embed(table, *a, **k):
+            self.embed_rows.add(int(table.shape[0]))
+            return self.orig[1](table, *a, **k)
+
+        model.head_logits, model.embed_tokens = head, embed
+        return self
+
+    def __exit__(self, *exc):
+        self.model.head_logits, self.model.embed_tokens = self.orig
+
+    def put(self, out: dict, key: str) -> None:
+        out[f"{key}|head_cols"] = np.array(sorted(self.head_cols))
+        out[f"{key}|embed_rows"] = np.array(sorted(self.embed_rows))
+
+
+def check_vocab_widths(res: dict, key: str, vocab: int, m: int, what: str) -> list:
+    """The head columns and embedding rows a rank saw: V/m each where m
+    divides the vocabulary, else V.  Returns the head columns."""
+    want = [vocab // m if vocab % m == 0 else vocab]
+    cols, rows = res[f"{key}|head_cols"].tolist(), res[f"{key}|embed_rows"].tolist()
+    check(cols == want and rows == want, f"{what}: head columns {cols}, embedding rows {rows}, want {want}")
+    return cols
+
+
 def train_sharded_rank(rank: int, world: int) -> dict:
     """One rank of the sharded f32 train step on the card, every case of
     ``SHARDED_TRAIN_CASES`` in turn (each on its own mesh over the one
@@ -1459,8 +1529,9 @@ def train_sharded_rank(rank: int, world: int) -> dict:
         batch = train_batch(cfg.vocab, B, S, 7, "cuda")
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        with StepSpy(lambda m, g: m.grad_norm(g)) as spy:
+        with StepSpy(lambda m, g: m.grad_norm(g)) as spy, VocabWidths() as widths:
             loss, model, opt = step(model, opt, batch)
+        widths.put(out, key)
         out[f"{key}|loss"] = loss.cpu().numpy()
         out[f"{key}|step_ms"] = np.array((time.monotonic() - t0) * 1e3)
         out[f"{key}|peak_gb"] = np.array(torch.cuda.max_memory_allocated() / 1e9)
@@ -1518,6 +1589,9 @@ def train_sharded_check(configs, kernels) -> list:
         want = one[arch, layers, B, S]
         case = sharded_case_key(arch, mesh)
         worst = dict(params=0.0, grads=0.0)
+        vocab = sharded_train_cfg(configs, arch, layers).vocab
+        head_cols = [check_vocab_widths(res, case, vocab, mesh[1], f"train_sharded {arch} {mesh} rank {r}")
+                     for r, res in enumerate(ranks)]
         for r, res in enumerate(ranks):
             for what, key in (("loss", "loss"), ("global grad norm", "grad_norm")):
                 a, b = float(res[f"{case}|{key}"]), want[key]
@@ -1542,6 +1616,7 @@ def train_sharded_check(configs, kernels) -> list:
                    rank_loss=[float(res[f"{case}|loss"]) for res in ranks],
                    rank_grad_norm=[float(res[f"{case}|grad_norm"]) for res in ranks],
                    params_worst_tol_share=worst["params"], grads_worst_tol_share=worst["grads"],
+                   vocab=vocab, rank_head_cols=head_cols,
                    one_process_step_ms=want["ms"], rank_step_ms=[float(res[f"{case}|step_ms"]) for res in ranks],
                    rank_peak_gb=[float(res[f"{case}|peak_gb"]) for res in ranks], run_ranks_s=ranks_s,
                    phase_s_so_far=time.monotonic() - t_phase,
@@ -1689,10 +1764,11 @@ def tp_serve_rank(rank: int, world: int) -> dict:
         del model
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with EntryInputs("flash_attention") as flash:
+        with EntryInputs("flash_attention") as flash, VocabWidths() as widths:
             toks, logits, prefill_ms, decode_ms = tp_greedy(
                 counted(make_prefill_step(cfg, rules, B), key), make_decode_step(cfg, rules, B), sharded,
                 prompt, TP_NEW, grow_ranks(cfg, B))
+        widths.put(out, key)
         out[f"{key}|peak_gb"] = np.array(torch.cuda.max_memory_allocated() / 1e9)
         out[f"{key}|prefill_ms"], out[f"{key}|decode_ms"] = np.array(prefill_ms), np.array(decode_ms)
         out[f"{key}|tokens"] = toks.numpy()
@@ -1778,7 +1854,8 @@ def tp_serve_check(configs, kernels) -> dict:
             check(bool(res[f"{key}|finite"]) and toks.shape == (B, TP_NEW) and ((0 <= toks) & (toks < cfg.vocab)).all(),
                   f"tp_serve ({key}) rank {r}: logits not finite or tokens {toks.shape}")
             check(np.array_equal(toks, ranks[0][f"{key}|tokens"]), f"tp_serve ({key}): ranks' tokens differ")
-            rank = dict(launches=counts, kernel=kern, peak_gb=float(res[f"{key}|peak_gb"]),
+            head_cols = check_vocab_widths(res, key, cfg.vocab, TP_RANKS, f"tp_serve ({key}) rank {r}")
+            rank = dict(launches=counts, kernel=kern, head_cols=head_cols[0], peak_gb=float(res[f"{key}|peak_gb"]),
                         prefill_ms=float(res[f"{key}|prefill_ms"]), decode_ms_per_step=float(res[f"{key}|decode_ms"]))
             if key == "a":
                 check(np.array_equal(toks, res[f"{key}|one_tokens"]),

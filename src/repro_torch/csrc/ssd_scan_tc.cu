@@ -17,8 +17,8 @@
 // (one block an SM).  Here all four run as mma.sync.m16n8k16 with f32
 // accumulators, from bf16 tiles in 89,088 bytes of shared memory, so two
 // blocks fit on an SM and the main path's 192 (batch, head) blocks run in
-// one wave on 132 SMs.  One block of 4 warps owns a (batch, head) and loops
-// over the chunks:
+// one wave on 132 SMs.  One block of 4 warps owns a (batch, head, P tile)
+// and loops over the chunks:
 //   - x, C and dt of a chunk are staged by cp.async (rows past Q zero-filled,
 //     so chunks of 100 or 8 work; Q is padded to its multiple of 16);
 //   - C S^T (Q x N x P): each warp owns two 16-row tiles of the chunk, rows
@@ -58,6 +58,15 @@
 // exp(a_base - a_j), the reference's exp(a_i - a_j) up to one rounding of
 // each factor.
 //
+// Widths: the state's rows, y's columns and x's columns split into tiles of
+// P_TILE = 64, one block each (y[:, p] and S[p, :] depend on their own p
+// only; only C B^T is shared, and each P tile recomputes it), so any P runs,
+// ceil(P / 64) blocks a (batch, head); a tile's 16 state rows a warp stay in
+// registers as before.  N <= 128: the state's registers (st[16][4]) and C's
+// fragments (cf[8][4]) grow with N, and an N of 256 would double them under
+// the two blocks an SM; the wrapper's rule sends bf16 at N > 128 to the
+// CUDA-core kernel (kernels/ssd.py::variant), which takes N up to 256.
+//
 // The wrapper sends here only input that cp.async can read 16 bytes at a
 // time: P and N multiples of 8, strides multiples of 8 elements, 16-byte
 // aligned bases (mamba2-130m: x a slice of the fused xBC activation, row
@@ -84,13 +93,13 @@ using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 128;  // 4 warps
 constexpr int Q_MAX = 128;
-constexpr int P_MAX = 64;
+constexpr int P_TILE = 64;  // the state rows (x and y columns) a block owns: 16 a warp
 constexpr int N_MAX = 128;
-constexpr int XLD = P_MAX + 8;  // row strides: +16 bytes, so ldmatrix's 8 rows hit 8 bank groups
+constexpr int XLD = P_TILE + 8;  // row strides: +16 bytes, so ldmatrix's 8 rows hit 8 bank groups
 constexpr int NLD = N_MAX + 8;
 constexpr size_t SMEM_BYTES =
     (size_t)(Q_MAX * XLD + 2 * Q_MAX * NLD) * sizeof(bf16) + 2 * Q_MAX * sizeof(float);
-static_assert(2 * P_MAX <= Q_MAX, "the state's hi and lo copies fit in B's tile");
+static_assert(2 * P_TILE <= Q_MAX, "the state's hi and lo copies fit in B's tile");
 static_assert(SMEM_BYTES <= 115712, "two blocks an SM");
 
 // rows [row0, row0 + Q_MAX) into a [Q_MAX][LD] tile; rows >= nrows and
@@ -117,20 +126,23 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [Q_MAX][XLD]
   bf16* cs = xs + Q_MAX * XLD;                     // [Q_MAX][NLD]
   bf16* bs = cs + Q_MAX * NLD;                     // [Q_MAX][NLD]: B, or the state's operand
-  bf16* s_hi = bs;                                 //   [P_MAX][NLD] hi
-  bf16* s_lo = bs + P_MAX * NLD;                   //   [P_MAX][NLD] lo
+  bf16* s_hi = bs;                                 //   [P_TILE][NLD] hi
+  bf16* s_lo = bs + P_TILE * NLD;                  //   [P_TILE][NLD] lo
   float* s_dt = reinterpret_cast<float*>(bs + Q_MAX * NLD);  // [Q_MAX], 0 past Q
   float* s_a = s_dt + Q_MAX;  // [Q_MAX] a_cum (the chunk's sum at each row), a_tot past Q
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int n_pt = (P + P_TILE - 1) / P_TILE;
+  const int h = blockIdx.x / n_pt, b = blockIdx.y;
+  const int p0 = (blockIdx.x % n_pt) * P_TILE;
+  const int Pt = min(P_TILE, P - p0);  // this block's columns of x and y, rows of S
   const float Ah = A[h], Dh = D[h];
-  const bf16* xb = x + b * x_sb + h * x_sh;
+  const bf16* xb = x + b * x_sb + h * x_sh + p0;
   const float* dtb = dt + b * dt_sb + h * dt_sh;
   const bf16* bb = Bm + b * b_sb + (h / rep) * b_sg;
   const bf16* cb = Cm + b * c_sb + (h / rep) * c_sg;
-  bf16* yb = y + ((int64_t)b * S * H + h) * P;  // y is contiguous (B, S, H, P)
+  bf16* yb = y + ((int64_t)b * S * H + h) * P + p0;  // y is contiguous (B, S, H, P)
   const int64_t y_ss = (int64_t)H * P;
   const int n_mt = (Q + 15) / 16;  // 16-row tiles of the chunk in use
   const int mts[2] = {warp, 7 - warp};
@@ -146,7 +158,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
   for (int s0 = 0; s0 < S; s0 += Q) {
     if (s0 % chunk == 0) a_base = 0.f;  // a chunk starts
     // 1. x, C and dt of the chunk (the last chunk's reads of x and C are done)
-    load_rows<XLD, P_MAX / 8>(xs, xb + (int64_t)s0 * x_ss, x_ss, 0, Q, P);
+    load_rows<XLD, P_TILE / 8>(xs, xb + (int64_t)s0 * x_ss, x_ss, 0, Q, Pt);
     load_rows<NLD, N_MAX / 8>(cs, cb + (int64_t)s0 * c_ss, c_ss, 0, Q, N);
     tc::cp_async_commit();
     if (tid < Q_MAX) s_dt[tid] = tid < Q ? dtb[(int64_t)(s0 + tid) * dt_ss] : 0.f;
@@ -167,11 +179,11 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
     const float a_tot = s_a[Q - 1];
 
     // 2. y = exp(a_i - a_base) (C S^T), the state entering the tile (none at the first)
-    float yacc[2][P_MAX / 8][4];
+    float yacc[2][P_TILE / 8][4];
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
-      for (int n = 0; n < P_MAX / 8; ++n)
+      for (int n = 0; n < P_TILE / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) yacc[u][n][e] = 0.f;
     if (s0 > 0) {
@@ -184,7 +196,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
           uint32_t af[4];
           tc::ldsm_x4(cs + (mt * 16 + (lane & 15)) * NLD + ks * 16 + (lane >> 4) * 8, af);
 #pragma unroll
-          for (int np = 0; np < P_MAX / 16; ++np) {
+          for (int np = 0; np < P_TILE / 16; ++np) {
             const int off = (np * 16 + (lane >> 4) * 8 + (lane & 7)) * NLD + ks * 16 +
                             ((lane >> 3) & 1) * 8;
             uint32_t hf[4], lf[4];
@@ -199,7 +211,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
         const float e0 = expf(s_a[mt * 16 + g] - a_base);
         const float e1 = expf(s_a[mt * 16 + g + 8] - a_base);
 #pragma unroll
-        for (int n = 0; n < P_MAX / 8; ++n) {
+        for (int n = 0; n < P_TILE / 8; ++n) {
           yacc[u][n][0] *= e0;
           yacc[u][n][1] *= e0;
           yacc[u][n][2] *= e1;
@@ -255,7 +267,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
         tc::split(m[1][0], m[1][1], mh[2], ml[2]);
         tc::split(m[1][2], m[1][3], mh[3], ml[3]);
 #pragma unroll
-        for (int np = 0; np < P_MAX / 16; ++np) {
+        for (int np = 0; np < P_TILE / 16; ++np) {
           uint32_t xf[4];
           tc::ldsm_x4_t(xs + (jt * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * XLD + np * 16 +
                             (lane >> 4) * 8, xf);
@@ -271,9 +283,9 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
         if (i >= Q) continue;
         bf16* row = yb + (int64_t)(s0 + i) * y_ss;
 #pragma unroll
-        for (int n = 0; n < P_MAX / 8; ++n) {
-          const int p = n * 8 + 2 * t;  // P is a multiple of 8: p < P means p + 1 < P
-          if (p >= P) continue;
+        for (int n = 0; n < P_TILE / 8; ++n) {
+          const int p = n * 8 + 2 * t;  // Pt is a multiple of 8: p < Pt means p + 1 < Pt
+          if (p >= Pt) continue;
           const float2 xv = tc::unpack(*reinterpret_cast<const uint32_t*>(xs + i * XLD + p));
           *reinterpret_cast<uint32_t*>(row + p) =
               tc::pack(yacc[u][n][2 * r] + xv.x * Dh, yacc[u][n][2 * r + 1] + xv.y * Dh);
@@ -330,13 +342,13 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_tc_kernel(
     a_base = a_tot;
   }
 
-  float* so = state_out + ((int64_t)b * H + h) * P * N;
+  float* so = state_out + (((int64_t)b * H + h) * P + p0) * N;
 #pragma unroll
   for (int n = 0; n < N_MAX / 8; ++n) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int p = warp * 16 + g + 8 * r, c = n * 8 + 2 * t;
-      if (p < P && c < N)
+      if (p < Pt && c < N)
         *reinterpret_cast<float2*>(so + (int64_t)p * N + c) =
             make_float2(st[n][2 * r], st[n][2 * r + 1]);
     }
@@ -354,7 +366,8 @@ extern "C" {
 // and x, B, C, y and the state 16-byte aligned.  y is a contiguous
 // (B, S, H, P) and state a contiguous (B, H, P, N).  S must be a multiple of
 // the chunk, and the chunk a multiple of the tile Q (1..128), the rows taken
-// at a time.  Returns a cudaError_t: 0 when the launch was accepted.
+// at a time.  N <= 128; any P, H * ceil(P / 64) <= 2^31 - 1.  Returns a
+// cudaError_t: 0 when the launch was accepted.
 int ssd_scan_tc_fwd(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
                     const void* D, void* y, void* state, int B, int S, int H, int P, int G,
                     int N, int chunk, int Q, long long x_sb, long long x_ss, long long x_sh,
@@ -366,15 +379,15 @@ int ssd_scan_tc_fwd(const void* x, const void* dt, const void* A, const void* Bm
     aligned = aligned && s % 8 == 0;
   for (const void* p : {x, Bm, Cm, (const void*)y, (const void*)state})
     aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  if (B < 1 || B > 65535 || S < 1 || H < 1 || G < 1 || H % G != 0 || P < 1 || P > P_MAX ||
-      N < 1 || N > N_MAX || chunk < 1 || S % chunk != 0 || Q < 1 || Q > Q_MAX ||
-      chunk % Q != 0 || !aligned)
+  if (B < 1 || B > 65535 || S < 1 || H < 1 || G < 1 || H % G != 0 || P < 1 || N < 1 ||
+      N > N_MAX || chunk < 1 || S % chunk != 0 || Q < 1 || Q > Q_MAX || chunk % Q != 0 ||
+      !aligned || (long long)H * ((P + P_TILE - 1) / P_TILE) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(ssd_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, B);
+  const dim3 grid(H * ((P + P_TILE - 1) / P_TILE), B);
   ssd_tc_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), static_cast<const float*>(D),

@@ -25,7 +25,9 @@ holds.
 out, each rank holding only its shards, and gathers each period's leaves on
 use, which is the gather-on-use FSDP the reference gets from GSPMD
 (``src/repro/distributed/sharding.py:7-9``); the MoE expert leaves keep
-their ``model`` shard (the sharded ``moe_block`` takes the local experts).
+their ``model`` shard (the sharded ``moe_block`` takes the local experts),
+and so do a tensor-parallel layer's split leaves and, where ``model``
+divides the vocabulary, ``embed``'s rows and ``head``'s columns.
 Its shards take gradients: ``_GatherOnUse`` holds the rule by which each
 gradient goes back to its shard.
 """
@@ -40,7 +42,7 @@ import torch
 from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import DecoderLM, param_shapes
-from repro_torch.models.parallel import attn_split, kv_split, mlp_split, ssm_split
+from repro_torch.models.parallel import attn_split, kv_split, mlp_split, ssm_split, vocab_split
 
 
 def P(*entries) -> tuple:
@@ -461,8 +463,9 @@ class _GatherOnUse(torch.autograd.Function):
         gradient: it is SLICED, never summed.  The sharded ``moe_block``
         already sums its token and router cotangents over ``model``;
       * a kept dim (E of the MoE experts, a tensor-parallel leaf's heads or
-        d_ff, split on ``model``) stays split: each rank's cotangent is that
-        of its own experts or heads, summed over the batch axes only;
+        d_ff, ``embed``'s and ``head``'s vocabulary rows, split on
+        ``model``) stays split: each rank's cotangent is that of its own
+        experts, heads or rows, summed over the batch axes only;
       * a leaf gathered whole of which the ranks of a model group read
         different columns (``_Layout.summed_over``: a tensor-parallel
         layer's ``wk/wv`` whose kv heads do not split over ``model``, the
@@ -523,7 +526,9 @@ def _leaf_layouts(cfg: ArchConfig, rules: ShardingRules) -> Dict[str, _Layout]:
     """The layout of every parameter, by ``DecoderLM`` parameter name and in
     its order: a per-period parameter takes its stacked leaf's spec without
     the period axis, and keeps its ``model`` shard where ``_model_rule``
-    says (a kept dim's spec is exactly ``model``)."""
+    says, and ``embed`` its rows and ``head`` its columns where the model
+    axis divides the vocabulary (``parallel.vocab_split``; a kept dim's spec
+    is exactly ``model``)."""
     mesh = rules.mesh
     names = list(mesh_sizes(mesh))
     m = rules.model_size
@@ -540,9 +545,11 @@ def _leaf_layouts(cfg: ArchConfig, rules: ShardingRules) -> Dict[str, _Layout]:
                        (rules.model_axis,) if summed else ())
 
     out = {}
+    vocab_dim = {"embed": 0, "head": 1} if vocab_split(cfg, m) else {}
     for name in ("embed", "head", "final_norm"):
         if name in shapes:
-            out[name] = layout(specs[name], shapes[name], shapes[name].shape)
+            keep = (vocab_dim[name],) if name in vocab_dim else ()
+            out[name] = layout(specs[name], shapes[name], shapes[name].shape, keep)
     for p in range(cfg.n_periods):
         for pos, sub in shapes["stack"].items():
             i = int(pos[3:])
@@ -561,10 +568,12 @@ class ShardedLM:
     ``named_parameters()`` yields each shard under its ``DecoderLM`` name, a
     leaf that takes gradients when ``trainable``: the optimizer's moments and
     the checkpoint reach every shard by that name.  ``view()`` is what the
-    model code reads: it gathers ``embed``, ``head`` and ``final_norm`` once,
-    and each period's leaves only when the period code asks for a position,
-    inside its remat region, so the backward gathers again and only shards
-    outlive a period (GSPMD's gather on use under ``remat_policy="minimal"``).
+    model code reads: it gathers ``embed``, ``head`` and ``final_norm`` once
+    (over the fsdp axes only where the vocabulary splits over ``model``: each
+    rank keeps its V/m rows), and each period's leaves only when the period
+    code asks for a position, inside its remat region, so the backward
+    gathers again and only shards outlive a period (GSPMD's gather on use
+    under ``remat_policy="minimal"``).
     A MoE position's expert leaves are gathered over every axis but the one
     splitting E, so each rank holds its ``n_experts / model_size`` experts,
     as the sharded ``moe_block`` wants.  ``cache_periods`` does the same for
@@ -690,7 +699,8 @@ def _cache_keep(cfg: ArchConfig, rules: ShardingRules, path: Tuple[str, ...], pl
 
 class _View:
     """A ``ShardedLM`` as the model code reads a ``DecoderLM``, for one
-    forward: ``embed``, ``head`` and ``final_norm`` gathered once, and
+    forward: ``embed``, ``head`` and ``final_norm`` gathered once (never
+    over ``model`` where it splits the vocabulary: the rank's V/m rows), and
     ``layers`` yielding each period as a ``_Period``, which gathers a
     position's leaves when the period code asks for it."""
 

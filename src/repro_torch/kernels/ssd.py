@@ -10,16 +10,29 @@ h // (H // G); per (b, h) an f32 (P, N) state is carried over chunks of
 inter-chunk term ``(C Sᵀ) ∘ exp(a_cum)``, the state update
 ``S' = exp(a_tot) S + xᵀ(exp(a_tot − a_cum)·dt·B)``; it returns
 ``y + D·x`` rounded once to x's dtype and the final state in f32.  Any
-chunk that divides S, as the Pallas kernel; P ≤ 64, N ≤ 128 (mamba2-130m:
-chunk 128, P 64, N 128; jamba-1.5-large: chunk 256, P 64, N 128).  x, B and
-C are read through their strides (x is a slice of the fused xBC activation).
+chunk that divides S, as the Pallas kernel (mamba2-130m: chunk 128, P 64,
+N 128; jamba-1.5-large: chunk 256, P 64, N 128).  x, B and C are read
+through their strides (x is a slice of the fused xBC activation).
 
-**The tile is not the chunk.**  Both kernels keep 128-row tiles in shared
-memory (a 256-row tile of the f32 kernel would take 256 KB of the SM's 227,
-and would halve the bf16 kernel's two blocks an SM).  A chunk of ``chunk``
-rows runs as ``chunk / tile`` sub-tiles of ``tile = ssd_tile(chunk)`` rows,
-the largest divisor of the chunk that is at most 128, with the (P, N) state
-carried from one sub-tile to the next.  ``a_cum`` stays the chunk's: one
+**The domain.**  Any head width P: both kernels split the state's rows (y's
+and x's columns) into tiles of ``P_TILE`` = 64, one block each, since
+``y[:, p]`` and ``S[p, :]`` depend on their own p only and only ``C Bᵀ`` is
+shared (each P tile recomputes it); the grid holds ``H·⌈P/64⌉`` blocks a
+batch row, so P is bounded only by ``2³¹ − 1`` of them.  State widths up to
+``N_MAX`` = 256: the CUDA-core kernel keeps the (64, N) state and the B and
+C tiles in shared memory, which at N > 128 holds tiles of 64 rows at most
+(``ssd_tile``); the tensor-core kernel keeps the state in registers and
+takes N ≤ ``N_TC_MAX`` = 128 (``variant``).  N past 256 raises, naming the
+limit.
+
+**The tile is not the chunk.**  Both kernels keep tiles of at most 128 rows
+in shared memory (a 256-row tile of the f32 kernel would take 256 KB of the
+SM's 227, and would halve the bf16 kernel's two blocks an SM), and of at
+most 64 at N > 128 (B and C of 128 rows at N 256 would take 263 KB).  A
+chunk of ``chunk`` rows runs as ``chunk / tile`` sub-tiles of ``tile =
+ssd_tile(chunk, N)`` rows, the largest divisor of the chunk up to that
+bound, with the (P, N) state carried from one sub-tile to the next.
+``a_cum`` stays the chunk's: one
 sequential f32 sum over the whole chunk, carried across its sub-tiles, so
 every decay inside a sub-tile is the reference's ``exp(a_i − a_j)``.  A
 pair across a sub-tile boundary decays through the state, by
@@ -32,7 +45,7 @@ the 2e-4 tolerance.  A call stays one launch.
 
 What bounds it on the card: 2Q(QN + QP + 2NP) FLOPs per (b, h, tile of Q
 rows) against a few bytes per row, so tensor-core FLOPs at these widths.  The two
-variants, each one block per (b, h) looping over the chunks:
+variants, each one block per (b, h, P tile) looping over the chunks:
 
 - ``tensor_core`` (``csrc/ssd_scan_tc.cu``, bf16 x/B/C only): the four
   products on the tensor cores as ``mma.sync.m16n8k16`` with f32
@@ -46,11 +59,12 @@ variants, each one block per (b, h) looping over the chunks:
   would miss the f32 tolerance (2e-4).
 
 **The dtype rule** (``variant``): bf16 x/B/C with P and N multiples of 8,
-batch/sequence/head strides of x, B and C multiples of 8 elements and
-16-byte-aligned bases (what 16-byte cp.async needs) go to ``tensor_core``;
-every other input — f32, or bf16 that fails the alignment — goes to
-``cuda_core``.  Each variant launches or raises; neither falls back to the
-other.
+N ≤ 128, batch/sequence/head strides of x, B and C multiples of 8 elements
+and 16-byte-aligned bases (what 16-byte cp.async needs) go to
+``tensor_core``; every other input — f32, bf16 that fails the alignment, or
+bf16 at 128 < N ≤ 256 — goes to ``cuda_core``.  The rule reads shapes,
+strides and bases only: each variant launches or raises; neither falls back
+to the other.
 
 ``ssd_scan`` applies the rule and counts every launch in
 ``ssd_scan.launches``; ``ssd_scan_tc`` and ``ssd_scan_cuda_core`` launch one
@@ -67,7 +81,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE_MAX, P_MAX, N_MAX = 128, 64, 128
+TILE_MAX, WIDE_TILE_MAX = 128, 64  # rows of a tile at N <= N_TC_MAX, and above
+P_TILE, N_TC_MAX, N_MAX = 64, 128, 256
+_GRID_X_MAX = 2**31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -98,11 +114,13 @@ def _tc_kernel():
     return lib
 
 
-def ssd_tile(chunk: int) -> int:
+def ssd_tile(chunk: int, N: int = N_TC_MAX) -> int:
     """The rows a kernel takes of a chunk at a time: the largest divisor of
-    ``chunk`` that is at most ``TILE_MAX`` (256 -> 128, 200 -> 100, a prime
-    above 128 -> 1).  Pure Python."""
-    return next(t for t in range(min(chunk, TILE_MAX), 0, -1) if chunk % t == 0)
+    ``chunk`` that is at most ``TILE_MAX`` at N ≤ 128, the zoo's widths (256
+    -> 128, 200 -> 100, a prime above 128 -> 1), and at most
+    ``WIDE_TILE_MAX`` above (128 -> 64, 100 -> 50).  Pure Python."""
+    top = TILE_MAX if N <= N_TC_MAX else WIDE_TILE_MAX
+    return next(t for t in range(min(chunk, top), 0, -1) if chunk % t == 0)
 
 
 def variant(
@@ -110,11 +128,17 @@ def variant(
 ) -> str:
     """The dtype rule: ``"tensor_core"`` for bf16 x/B/C that 16-byte cp.async
     can read (P and N multiples of 8, every batch/sequence/head stride of x,
-    B and C a multiple of 8 elements, every base 16-byte aligned), else
-    ``"cuda_core"``.  Pure Python: it reads no tensor."""
+    B and C a multiple of 8 elements, every base 16-byte aligned) at
+    N ≤ ``N_TC_MAX``, else ``"cuda_core"``.  A rule on the shape: bf16 at
+    128 < N ≤ 256 goes to the CUDA-core kernel, whose state lives in shared
+    memory, because the tensor-core kernel holds a warp's 16 rows of the
+    state in registers (16·N/8 floats a thread, with C's N/16 fragments),
+    which at N 256 would spill under its two blocks an SM.  Pure Python: it
+    reads no tensor."""
     aligned = (
         P % 8 == 0
         and N % 8 == 0
+        and N <= N_TC_MAX
         and all(s % 8 == 0 for s in strides)
         and all(p % 16 == 0 for p in data_ptrs)
     )
@@ -165,8 +189,10 @@ def _check(x, dt, A, Bm, Cm, D, chunk: int) -> None:
         raise ValueError(f"ssd_scan kernel takes chunk >= 1, got {chunk}")
     if S % chunk:
         raise ValueError(f"ssd_scan kernel: S={S} is not a multiple of chunk={chunk}")
-    if P > P_MAX or N > N_MAX:
-        raise ValueError(f"ssd_scan kernel takes P <= {P_MAX} and N <= {N_MAX}, got P={P}, N={N}")
+    if N > N_MAX:
+        raise ValueError(f"ssd_scan kernel takes N <= {N_MAX} (the state's width), got N={N}")
+    if H * -(-P // P_TILE) > _GRID_X_MAX:
+        raise ValueError(f"ssd_scan kernel: H={H} heads of P={P} need more than {_GRID_X_MAX} blocks")
     if Bb > 65535:
         raise ValueError(f"ssd_scan kernel: batch {Bb} above 65535")
 
@@ -205,7 +231,7 @@ def _launch(fn, err, x, dt, A, Bm, Cm, D, extra, chunk):
         rc = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             D.data_ptr(), y.data_ptr(), state.data_ptr(),
-            *extra, Bb, S, H, P, G, N, chunk, ssd_tile(chunk),
+            *extra, Bb, S, H, P, G, N, chunk, ssd_tile(chunk, N),
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -219,8 +245,8 @@ def ssd_scan_tc(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor, torch
     _check(x, dt, A, Bm, Cm, D, chunk)
     if _variant_of(x, Bm, Cm) != TENSOR_CORE:
         raise ValueError(
-            "ssd_scan_tc takes bf16 x/B/C with P, N and strides multiples of 8 and "
-            f"16-byte-aligned bases; got {x.dtype}, P {x.shape[3]}, N {Bm.shape[3]}"
+            f"ssd_scan_tc takes bf16 x/B/C with N <= {N_TC_MAX}, P, N and strides multiples of 8 "
+            f"and 16-byte-aligned bases; got {x.dtype}, P {x.shape[3]}, N {Bm.shape[3]}"
         )
     lib = _tc_kernel()
     out = _launch(lib.ssd_scan_tc_fwd, lib.ssd_scan_tc_error_string,
@@ -234,7 +260,7 @@ ssd_scan_tc.launches = 0
 
 def ssd_scan_cuda_core(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA-core kernel (f32 or bf16 x/B/C, any strides with a contiguous
-    last dim)."""
+    last dim, N up to 256)."""
     _check(x, dt, A, Bm, Cm, D, chunk)
     lib = _kernel()
     out = _launch(lib.ssd_scan_fwd, lib.ssd_scan_error_string,
@@ -246,16 +272,17 @@ def ssd_scan_cuda_core(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor
 ssd_scan_cuda_core.launches = 0
 
 
-def chunk_a_cum(dt: torch.Tensor, A: torch.Tensor, chunk: int) -> torch.Tensor:
+def chunk_a_cum(dt: torch.Tensor, A: torch.Tensor, chunk: int,
+                precision: torch.dtype = torch.float32) -> torch.Tensor:
     """``a_cum`` (B, S, H) f32 as the kernels take it: within each chunk, a
     sequential f32 sum of ``dt·A``, the product and each partial sum rounded
     separately.  ``torch.cumsum`` sums in an order of its own (a parallel
     scan on the card, double accumulation on the CPU); at chunk 256 an
     ``a_cum`` of about -200 rounds in steps of 1.5e-5, which moves f32 y by
     about 1e-3 where terms cancel, past the 2e-4 tolerance.  One add a row
-    of the chunk, over every chunk at once."""
+    of the chunk, over every chunk at once, in ``precision``."""
     Bb, S, H = dt.shape
-    dA = (dt.float() * A).reshape(Bb, S // chunk, chunk, H)
+    dA = (dt.to(precision) * A.to(precision)).reshape(Bb, S // chunk, chunk, H)
     out = torch.empty_like(dA)
     run = torch.zeros_like(dA[:, :, 0])
     for i in range(chunk):
@@ -273,22 +300,27 @@ def ssd_scan_plain(
     D: torch.Tensor,
     *,
     chunk: int,
+    precision: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, on any device: the Pallas
     kernel's loop over whole chunks, batched over (b, h), all in f32, with
     ``a_cum`` summed as the kernels sum it (``chunk_a_cum``) and
-    ``y + D·x`` rounded to x's dtype at the end."""
+    ``y + D·x`` rounded to x's dtype at the end.  ``precision`` float64
+    computes the same function nearly exactly (the state still returned in
+    f32): past N 128, unit-normal B and C make |y| reach hundreds, and two
+    f32 summation orders part by more than the f32 tolerance where y
+    cancels, so an f32 kernel is held against this there."""
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
     assert S % chunk == 0, (S, chunk)
-    xf, dtf = x.float(), dt.float()
-    Bh = Bm.float().repeat_interleave(rep, dim=2)  # (B,S,H,N)
-    Ch = Cm.float().repeat_interleave(rep, dim=2)
+    xf, dtf = x.to(precision), dt.to(precision)
+    Bh = Bm.to(precision).repeat_interleave(rep, dim=2)  # (B,S,H,N)
+    Ch = Cm.to(precision).repeat_interleave(rep, dim=2)
     ii = torch.arange(chunk, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[None, :, :, None]  # (1,Qi,Qj,1)
-    state = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
-    a_all = chunk_a_cum(dtf, A, chunk)
+    state = torch.zeros((Bb, H, P, N), dtype=precision, device=x.device)
+    a_all = chunk_a_cum(dtf, A, chunk, precision)
     ys = []
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -305,5 +337,5 @@ def ssd_scan_plain(
         state = state * torch.exp(a_tot)[..., None, None] + torch.einsum(
             "bjhp,bjhn->bhpn", xc, Bc * w[..., None]
         )
-        ys.append(y + xc * D[None, None, :, None])
-    return torch.cat(ys, dim=1).to(x.dtype), state
+        ys.append(y + xc * D.to(precision)[None, None, :, None])
+    return torch.cat(ys, dim=1).to(x.dtype), state.float()

@@ -18,12 +18,16 @@ SSM on its H_ssm/m heads (flash and the SSD scan run on those heads in
 serving), each row-parallel product's f32 partial sums all-reduced over
 the model group, and the MoE experts split over ``model``; a layer whose
 heads or d_ff the model axis does not divide runs whole on every rank of
-its model group.  ``embed``, ``head`` and the norms run whole on every
-rank.  The serving steps return this rank's slice of their outputs; the
-train step reduces each gradient back to its shard
-(``sharding._GatherOnUse``), updates the shards and returns the loss of the
-global batch (each rank's loss divided by the global label count, so masked
-labels weigh as in the reference).  Every collective is a c10d one: no
+its model group.  Where the model axis divides the vocabulary, the
+embedding lookup, the head and the CE run on each rank's V/m vocabulary
+rows (``parallel.vocab_split``), and the serving steps gather the logit
+columns over the model group, so they return this rank's rows of the
+whole-V f32 logits, as one process does; elsewhere ``embed`` and ``head``
+run whole on every rank, as do the norms.  The serving steps return this
+rank's slice of their outputs; the train step reduces each gradient back to
+its shard (``sharding._GatherOnUse``), updates the shards and returns the
+loss of the global batch (each rank's loss divided by the global label
+count, so masked labels weigh as in the reference).  Every collective is a c10d one: no
 step reaches a DTensor redistribution.
 """
 from __future__ import annotations
@@ -45,7 +49,7 @@ from repro_torch.distributed.sharding import (
 from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig, ShapeConfig
-from repro_torch.models.parallel import MeshContext
+from repro_torch.models.parallel import MeshContext, vocab_gather
 from repro_torch.training.optimizer import OptSettings, adamw_update
 
 
@@ -205,8 +209,8 @@ def make_prefill_step(
 ):
     """``prefill_step(params, batch)`` -> (last-position logits f32 (B, V),
     decode state), ``M.prefill`` without gradients.  With ``rules``: this
-    rank's rows of the logits, and the state laid out by
-    ``state_shardings``."""
+    rank's rows of the logits (every column, gathered over ``model`` where
+    the vocabulary splits), and the state laid out by ``state_shardings``."""
     ctx = make_mesh_context(rules, cfg, global_batch)
 
     @torch.no_grad()
@@ -214,7 +218,7 @@ def make_prefill_step(
         if rules is None:
             return M.prefill(params, cfg, batch)
         logits, state = M.prefill(params.view(), cfg, _local_batch(rules, cfg, batch), ctx)
-        return logits, shard_state(rules, cfg, state, global_batch)
+        return vocab_gather(logits, cfg, ctx), shard_state(rules, cfg, state, global_batch)
 
     return prefill_step
 
@@ -225,7 +229,7 @@ def make_decode_step(
     """``serve_step(params, state, tokens, cache_pos)`` -> (logits f32
     (B, V), new state), ``M.decode_step`` without gradients; the caches in
     ``state`` are written in place.  With ``rules``: ``tokens`` is the
-    global (B, 1), and the logits are this rank's rows."""
+    global (B, 1), and the logits are this rank's rows, every column."""
     ctx = make_mesh_context(rules, cfg, global_batch)
 
     @torch.no_grad()
@@ -236,7 +240,8 @@ def make_decode_step(
         logits, (caches, new_len) = M.decode_step(
             params.view(), cfg, _local_batch(rules, cfg, {"tokens": tokens})["tokens"],
             (caches, kv_len.to_local()), cache_pos, ctx)
-        return logits, (caches, from_local(new_len, rules.mesh, kv_len.placements, kv_len.shape))
+        return vocab_gather(logits, cfg, ctx), (
+            caches, from_local(new_len, rules.mesh, kv_len.placements, kv_len.shape))
 
     return serve_step
 
@@ -246,7 +251,7 @@ def make_encoder_step(
 ):
     """Encoder-only 'prefill': ``encode_step(params, batch)`` -> per-frame
     logits f32 (B, S, V), the full forward without remat and no cache
-    (with ``rules``, this rank's rows)."""
+    (with ``rules``, this rank's rows, every column)."""
     ctx = make_mesh_context(rules, cfg, global_batch)
 
     @torch.no_grad()
@@ -255,7 +260,7 @@ def make_encoder_step(
             batch = _local_batch(rules, cfg, batch)
         model = params.view()
         hidden, _ = M.forward(model, cfg, batch, ctx, remat=False)
-        return M.lm_head(model, cfg, hidden)
+        return vocab_gather(M.lm_head(model, cfg, hidden, ctx), cfg, ctx)
 
     return encode_step
 

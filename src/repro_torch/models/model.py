@@ -27,10 +27,13 @@ A period position's channel mixer is a dense MLP or an MoE block
 ``parallel.MeshContext``, None for one process) reaches every mixer and
 MLP: ``moe_block`` splits the experts over ``model`` as in the reference,
 and attention, the dense MLP and the SSM split their heads or d_ff over it
-where it divides them (``models/parallel.py``); under it ``params`` is a
-``distributed.sharding.ShardedLM``'s ``view()``, which gathers each
-period's parameters on use and keeps the ``model`` shard of a split
-leaf.  The
+where it divides them (``models/parallel.py``); so do the embedding
+lookup, the head and the cross entropy, on V/m vocabulary rows a rank where
+the model axis divides V (``parallel.vocab_split``; the prefill, decode and
+encoder logits are then this rank's columns, which the step builders
+gather).  Under it ``params`` is a ``distributed.sharding.ShardedLM``'s
+``view()``, which gathers each period's parameters on use and keeps the
+``model`` shard of a split leaf.  The
 frontends are the reference's stubs: a ``"patch"`` config (the VLM) writes
 precomputed patch embeddings over its first ``n_frontend_tokens`` token
 embeddings, a ``"frame"`` config (the audio encoder) takes precomputed
@@ -58,7 +61,14 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 from repro_torch.models.moe import moe_block, moe_param_shapes
-from repro_torch.models.parallel import MeshContext
+from repro_torch.models.parallel import (
+    MeshContext,
+    into_region,
+    vocab_ctx,
+    vocab_embed,
+    vocab_parallel_nll,
+    vocab_range,
+)
 from repro_torch.models.ssm import (
     ssm_block,
     ssm_block_decode,
@@ -261,20 +271,33 @@ def _check_tree(tree: Dict, spec: Dict, path: str = "") -> None:
 # ---------------------------------------------------------------------------
 # Embeddings and the period body
 # ---------------------------------------------------------------------------
-def embed_inputs(params: DecoderLM, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
+                 ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """The token embedding lookup: ``table[tokens]``, or, where the
+    vocabulary splits over ``ctx``'s model axis, the lookup on this rank's
+    rows summed over the group (``parallel.vocab_embed``)."""
+    vctx = vocab_ctx(cfg, ctx)
+    return table[tokens] if vctx is None else vocab_embed(table, tokens, cfg, vctx)
+
+
+def embed_inputs(params: DecoderLM, cfg: ArchConfig, batch: Dict,
+                 ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """(B, S, d) initial hidden states from the modality frontend.
 
-    * text:   token embedding lookup
+    * text:   token embedding lookup (``embed_tokens``: vocab-parallel under
+              ``ctx`` where the vocabulary splits)
     * vlm:    token embedding; the first ``n_frontend_tokens`` positions are
               replaced by ``batch["patch_embeds"]`` (B, P, d) in the
               embedding's dtype.  Out of place (``torch.cat``), so autograd
               sees the replacement: the replaced positions give ``embed`` no
               gradient, as in the reference's ``dynamic_update_slice``.
+              Under a split vocabulary the replacement comes after the
+              lookups are summed, on the whole embedding.
     * audio:  ``batch["frame_embeds"]`` in the model dtype is the input
     """
     if cfg.frontend == "frame":
         return batch["frame_embeds"].to(cfg.torch_dtype)
-    x = params.embed[batch["tokens"]]  # (B, S, d)
+    x = embed_tokens(params.embed, batch["tokens"], cfg, ctx)  # (B, S, d)
     if cfg.frontend == "patch":
         patches = batch["patch_embeds"].to(x.dtype)  # (B, P, d)
         if patches.shape[1] > x.shape[1]:
@@ -403,7 +426,7 @@ def forward(
     the projections' outputs (selective checkpointing); "sublayer" nests a
     checkpoint around every sublayer.
     """
-    x = embed_inputs(params, cfg, batch)
+    x = embed_inputs(params, cfg, batch, ctx)
     positions = torch.arange(x.shape[1], device=x.device)
     inner = remat and remat_policy == "sublayer"
     kw = {}
@@ -424,19 +447,46 @@ def forward(
     return x, stacked
 
 
-def lm_head(params: DecoderLM, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """f32 logits."""
-    w = params.embed.T if cfg.tie_embeddings else params.head
+def _head_weight(params: DecoderLM, cfg: ArchConfig) -> torch.Tensor:
+    """(d, V) — or this rank's (d, V/m) under a split vocabulary."""
+    return params.embed.T if cfg.tie_embeddings else params.head
+
+
+def head_logits(hidden: torch.Tensor, w: torch.Tensor, cfg: ArchConfig,
+                ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """The head product, f32: ``hidden @ w`` on every column of ``w``, which
+    under a split vocabulary are this rank's V/m; the hidden state then
+    enters the group's region (its gradient is the sum of the ranks'
+    partial products)."""
+    vctx = vocab_ctx(cfg, ctx)
+    if vctx is not None:
+        vocab_range(cfg, vctx, w.shape[1], "the head")
+        hidden = into_region(hidden, vctx)
     return _dot_f32(hidden, w)
 
 
-def _ce_chunk(w: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor):
-    """Summed masked cross entropy of one chunk, and its count of labels."""
-    logits = _dot_f32(h_c, w)  # f32 (B, c, V)
-    lse = torch.logsumexp(logits, dim=-1)  # (B, c)
-    gold = torch.gather(logits, -1, l_c.clamp_min(0)[..., None]).squeeze(-1)
+def lm_head(params: DecoderLM, cfg: ArchConfig, hidden: torch.Tensor,
+            ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """f32 logits: over the whole vocabulary, or this rank's V/m columns
+    where it splits over ``ctx``'s model axis (``parallel.vocab_gather``
+    joins them)."""
+    return head_logits(hidden, _head_weight(params, cfg), cfg, ctx)
+
+
+def _ce_chunk(w: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor, cfg: ArchConfig,
+              ctx: Optional[MeshContext]):
+    """Summed masked cross entropy of one chunk, and its count of labels;
+    vocab-parallel where the vocabulary splits over ``ctx``."""
+    logits = head_logits(h_c, w, cfg, ctx)  # f32 (B, c, V) or (B, c, V/m)
+    vctx = vocab_ctx(cfg, ctx)
+    if vctx is None:
+        lse = torch.logsumexp(logits, dim=-1)  # (B, c)
+        gold = torch.gather(logits, -1, l_c.clamp_min(0)[..., None]).squeeze(-1)
+        nll = lse - gold
+    else:
+        nll = vocab_parallel_nll(logits, l_c, cfg, vctx)
     mask = (l_c >= 0).float()
-    return ((lse - gold) * mask).sum(), mask.sum()
+    return (nll * mask).sum(), mask.sum()
 
 
 def _counted(S: int, chunk: int) -> int:
@@ -458,6 +508,7 @@ def chunked_ce_loss(
     *,
     chunk: int = 512,
     count: Optional[torch.Tensor] = None,
+    ctx: Optional[MeshContext] = None,
 ) -> torch.Tensor:
     """Cross entropy over sequence chunks, each checkpointed, so the (B, S, V)
     logits tensor never exists for more than ``chunk`` positions at a time.
@@ -466,17 +517,21 @@ def chunked_ce_loss(
     ``(S // chunk) * chunk`` positions count: the tail past the last whole
     chunk is dropped.  The masked sum is divided by ``count`` where given
     (sharded training: the ``label_count`` of the global batch, of which
-    ``labels`` are this rank's rows), else by this batch's own.
+    ``labels`` are this rank's rows), else by this batch's own.  Under
+    ``ctx`` with a split vocabulary each chunk's product and CE run on this
+    rank's V/m columns (``parallel.vocab_parallel_nll``), still one
+    checkpoint a chunk.
     """
     S = hidden.shape[1]
-    w = params.embed.T if cfg.tie_embeddings else params.head
+    w = _head_weight(params, cfg)
+    ce = functools.partial(_ce_chunk, cfg=cfg, ctx=ctx)
     chunk = min(chunk, S)
     labels = labels.long()
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        t, n = checkpointed(_ce_chunk, w, hidden[:, sl], labels[:, sl])
+        t, n = checkpointed(ce, w, hidden[:, sl], labels[:, sl])
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp_min(cnt if count is None else count, 1.0)
 
@@ -499,19 +554,20 @@ def train_loss(
     """
     cfg = dataclasses.replace(cfg, use_kernels=False)
     hidden, _ = forward(params, cfg, batch, ctx, remat=True, remat_policy=remat_policy)
-    return chunked_ce_loss(params, cfg, hidden, batch["labels"], count=count)
+    return chunked_ce_loss(params, cfg, hidden, batch["labels"], count=count, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
 # Serving: prefill + one-token decode
 # ---------------------------------------------------------------------------
 def prefill(params: DecoderLM, cfg: ArchConfig, batch: Dict, ctx: Optional[MeshContext] = None):
-    """Process the prompt; returns (last-position logits f32 (B, V), state).
+    """Process the prompt; returns (last-position logits f32 (B, V), state)
+    — (B, V/m), this rank's columns, under a split vocabulary.
 
     state = (caches stacked over periods, kv_len (B,) int32).
     """
     hidden, caches = forward(params, cfg, batch, ctx, remat=False, collect_cache=True)
-    logits = lm_head(params, cfg, hidden[:, -1:])[:, 0]
+    logits = lm_head(params, cfg, hidden[:, -1:], ctx)[:, 0]
     B, S = hidden.shape[0], hidden.shape[1]
     kv_len = torch.full((B,), S, dtype=torch.int32, device=hidden.device)
     return logits, (caches, kv_len)
@@ -551,17 +607,18 @@ def decode_step(
 ):
     """One serving step: consume one token, emit next-token logits.
 
-    Returns (logits f32 (B, V), new_state).  The caches in ``state`` are
-    updated in place and returned in ``new_state``; kv_len is a new tensor.
+    Returns (logits f32 (B, V), new_state); the logits are this rank's
+    (B, V/m) under a split vocabulary.  The caches in ``state`` are updated
+    in place and returned in ``new_state``; kv_len is a new tensor.
     """
     caches, kv_len = state
     cache_pos = int(cache_pos)
-    x = params.embed[tokens]  # (B, 1, d)
+    x = embed_tokens(params.embed, tokens, cfg, ctx)  # (B, 1, d)
     new_kv_len = torch.clamp_min(kv_len, cache_pos + 1)
     # cache_periods goes first: zip asks it once more at the end, which lets a
     # ShardedLM's take the last period's writes back before it stops
     for cslice, period in zip(params.cache_periods(caches), params.layers):
         x = _period_decode(period, cslice, x, cfg, ctx, cache_pos, new_kv_len)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = lm_head(params, cfg, x)[:, 0]
+    logits = lm_head(params, cfg, x, ctx)[:, 0]
     return logits, (caches, new_kv_len)

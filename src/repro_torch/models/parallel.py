@@ -20,6 +20,18 @@ A mixer or MLP splits only where the model axis divides its heads or d_ff
 runs whole on every rank of the model group, on gathered weights.  The
 rules are shared by the layers and by ``distributed.sharding``'s parameter
 layouts, which keep a split leaf's ``model`` shard instead of gathering it.
+
+The vocabulary splits the same way (``vocab_split``), as the specs split
+``embed`` (V, d) and ``head`` (d, V) on V: the rank at model coordinate r
+holds rows ``[r·V/m, (r+1)·V/m)`` (``vocab_range``).  The embedding looks
+up its own rows, zeros for the others' tokens, and the lookups are summed
+over the group (``vocab_embed``); the head multiplies on its own columns;
+the cross entropy is the Megatron vocab-parallel one (``vocab_parallel_nll``):
+the row max, the sum of exponentials and the gold logit are each reduced
+over the group, never the logits themselves, as the reference's docstring
+says its CE lowers ("partial reductions + a small all-reduce — no vocab
+gather", ``src/repro/models/model.py:323-325``).  Serving gathers the
+logit columns at the end (``vocab_gather``).
 """
 from __future__ import annotations
 
@@ -103,6 +115,29 @@ def ssm_split(cfg: ArchConfig, m: int) -> bool:
     """The SSM runs on H_ssm/m heads a rank (one group of B and C, which
     every rank reads whole; ``out_proj`` rows keep their model shard)."""
     return m > 1 and cfg.ssm_heads % m == 0 and cfg.ssm_groups == 1
+
+
+def vocab_split(cfg: ArchConfig, m: int) -> bool:
+    """``embed`` rows and ``head`` columns keep their model shard, and the
+    lookup, the head product and the CE run on V/m a rank, where m divides
+    the vocabulary (mamba2's 50280 and hubert's 504 do not divide 16: they
+    stay whole on every rank)."""
+    return m > 1 and cfg.vocab % m == 0
+
+
+def vocab_ctx(cfg: ArchConfig, ctx: Optional[MeshContext]) -> Optional[MeshContext]:
+    """``ctx`` where the vocabulary splits over its model axis, else None."""
+    return ctx if ctx is not None and vocab_split(cfg, ctx.model_size) else None
+
+
+def vocab_range(cfg: ArchConfig, ctx: MeshContext, held: int, what: str) -> Tuple[int, int]:
+    """This rank's vocabulary rows [lo, hi); raises unless ``held`` (the
+    rows or columns of the leaf it was handed) is exactly V/m, so a whole
+    leaf never passes for a shard."""
+    lo, hi = ctx.part(cfg.vocab)
+    if held != hi - lo:
+        raise ValueError(f"{what} holds {held} of the vocabulary, a rank's share is {hi - lo}")
+    return lo, hi
 
 
 # ---------------------------------------------------------------------------
@@ -192,3 +227,51 @@ def gather_over_model(t: torch.Tensor, ctx: MeshContext, dim: int) -> torch.Tens
     whole = part.new_empty((ctx.model_size * part.shape[0], *part.shape[1:]))
     dist.all_gather_into_tensor(whole, part, group=ctx.model_group)
     return whole.movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# The vocabulary split over model
+# ---------------------------------------------------------------------------
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
+                ctx: MeshContext) -> torch.Tensor:
+    """The embedding lookup on this rank's rows of ``table`` (V/m, d):
+    each token outside them gives zeros, and the group's lookups are summed
+    forward (one of them holds each row, so the sum is the lookup exactly);
+    the backward is the identity, since every rank goes on with the same
+    sum, and each rank's rows take the gradient of its own tokens."""
+    lo, hi = vocab_range(cfg, ctx, table.shape[0], "embed")
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    x = table[local.clamp(0, hi - lo - 1)]
+    return out_of_region(torch.where(inside[..., None], x, torch.zeros_like(x)), ctx)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig,
+                       ctx: MeshContext) -> torch.Tensor:
+    """``logsumexp(logits) − logits[label]`` over the whole vocabulary, per
+    position, from this rank's f32 columns ``logits`` (..., V/m) (the
+    Megatron form): the row max, detached and all-reduced MAX (the loss does
+    not depend on it); ``Σ exp(logit − max)`` summed over the group; the gold
+    logit taken where this rank holds the label's column, 0 elsewhere and
+    for a masked label (< 0), summed over the group.  Both sums have the
+    identity backward (every rank holds them whole), so each rank's columns
+    take the softmax gradient of their own share."""
+    import torch.distributed as dist
+
+    lo, hi = vocab_range(cfg, ctx, logits.shape[-1], "the head")
+    top = logits.detach().amax(dim=-1)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=ctx.model_group)
+    total = out_of_region(torch.exp(logits - top[..., None]).sum(dim=-1), ctx)
+    local = labels - lo
+    inside = (local >= 0) & (local < hi - lo)
+    gold = torch.gather(logits, -1, local.clamp(0, hi - lo - 1)[..., None]).squeeze(-1)
+    gold = out_of_region(torch.where(inside, gold, torch.zeros_like(gold)), ctx)
+    return torch.log(total) + top - gold
+
+
+def vocab_gather(logits: torch.Tensor, cfg: ArchConfig, ctx: Optional[MeshContext]) -> torch.Tensor:
+    """Serving logits over the whole vocabulary: this rank's columns joined
+    over the model group in rank order where the vocabulary splits, else
+    ``logits`` as they are."""
+    vctx = vocab_ctx(cfg, ctx)
+    return logits if vctx is None else gather_over_model(logits, vctx, logits.ndim - 1)

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 
 PHI, DBRX, JAMBA = "phi3.5-moe-42b-a6.6b", "dbrx-132b", "jamba-1.5-large-398b"
-DANUBE, HUBERT = "h2o-danube-3-4b", "hubert-xlarge"
+DANUBE, HUBERT, VLM = "h2o-danube-3-4b", "hubert-xlarge", "phi-3-vision-4.2b"
 
 # ---------------------------------------------------------------------------
 # The sharded MoE block: reduced phi3.5-moe and dbrx (4 experts, top-2), x of
@@ -33,14 +33,21 @@ TABLE_ARCHS = [PHI, JAMBA]  # the parameter tables held on (2, 2)
 # and each rank takes its columns (the gradient summed over model), and 3
 # query heads do not split, so attention runs whole on every rank
 DANUBE_KV2, DANUBE_KV1, DANUBE_H3 = f"{DANUBE}@4x2", f"{DANUBE}@4x1", f"{DANUBE}@3x1"
+# reduced danube at a vocabulary the model axis of 2 does not divide, named
+# "<arch>@v<V>": embed and head stay whole on every rank (the reduced
+# configs' 512 split into 256 rows a rank)
+DANUBE_V511 = f"{DANUBE}@v511"
 
 
 def case_cfg(configs, arch: str, dtype: str = "float32", **kw):
     """The reduced config of ``arch`` from either package's ``configs``;
-    ``<arch>@<H>x<KV>`` sets its query and kv heads."""
-    arch, _, heads = arch.partition("@")
-    if heads:
-        kw["n_heads"], kw["n_kv_heads"] = map(int, heads.split("x"))
+    ``<arch>@<H>x<KV>`` sets its query and kv heads, ``<arch>@v<V>`` its
+    vocabulary."""
+    arch, _, variant = arch.partition("@")
+    if variant.startswith("v"):
+        kw["vocab"] = int(variant[1:])
+    elif variant:
+        kw["n_heads"], kw["n_kv_heads"] = map(int, variant.split("x"))
     return dataclasses.replace(configs.reduce_for_smoke(configs.get(arch)), dtype=dtype, **kw)
 
 
@@ -151,7 +158,8 @@ def _leaves(specs, shapes, prefix=""):
 # function.
 # ---------------------------------------------------------------------------
 SERVE_CASES = [(PHI, 2), (PHI, 1), (DANUBE, 2), (JAMBA, 2),  # (arch, global batch)
-               (DANUBE_KV2, 2), (DANUBE_KV1, 2), (DANUBE_H3, 2), (DANUBE_KV2, 1)]
+               (DANUBE_KV2, 2), (DANUBE_KV1, 2), (DANUBE_H3, 2), (DANUBE_KV2, 1),
+               (DANUBE_V511, 2)]
 SERVE_S, SERVE_NEW, NO_DROP_CAPACITY = 16, 4, 4.0
 ENCODE_B, ENCODE_S = 2, 16
 SEED = 3
@@ -166,14 +174,17 @@ class LayerWidths:
     """While in use, records the widths the layers compute on: the query
     heads each attention core sees (the flash entry point, the chunked and
     the plain attention), the heads of each SSD scan (the scan entry point
-    and the chunked scan) and the hidden width of each dense MLP (its
-    ``w_down`` rows)."""
+    and the chunked scan), the hidden width of each dense MLP (its
+    ``w_down`` rows), the columns of each head product (``head_logits``: the
+    serving logits and each CE chunk) and the rows of each embedding table
+    looked up (``embed_tokens``)."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
         from repro_torch.models import layers, model, ssm
 
-        self.seen = {"attn_heads": set(), "ssd_heads": set(), "mlp_hidden": set()}
+        self.seen = {"attn_heads": set(), "ssd_heads": set(), "mlp_hidden": set(),
+                     "head_cols": set(), "embed_rows": set()}
         self._saved = []
 
         def spy(mod, name, kind, width):
@@ -192,6 +203,8 @@ class LayerWidths:
         for mod, name in ((ops, "ssd_scan"), (ssm, "ssd_chunked")):
             spy(mod, name, "ssd_heads", heads)
         spy(model, "mlp_block", "mlp_hidden", lambda params, *a: params["w_down"].shape[0])
+        spy(model, "head_logits", "head_cols", lambda hidden, w, *a: w.shape[1])
+        spy(model, "embed_tokens", "embed_rows", lambda table, *a: table.shape[0])
         return self
 
     def __exit__(self, *exc):
@@ -223,6 +236,14 @@ def encode_frames(cfg) -> np.ndarray:
     return np.random.default_rng(5).standard_normal((ENCODE_B, ENCODE_S, cfg.d_model)).astype(np.float32)
 
 
+def patch_prompt(cfg) -> dict:
+    """A VLM prompt of ``ENCODE_B`` x ``ENCODE_S`` tokens whose first
+    ``n_frontend_tokens`` positions are patch embeddings."""
+    rng = np.random.default_rng(6)
+    return {"tokens": rng.integers(0, cfg.vocab, (ENCODE_B, ENCODE_S)).astype(np.int64),
+            "patch_embeds": rng.standard_normal((ENCODE_B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)}
+
+
 def greedy(prefill, decode, model, prompt, n_new: int, full, grow):
     """Prefill, ``grow`` the state's K/V caches by ``n_new`` slots, then
     ``n_new`` greedy decode steps; ``full`` turns a step's logits into the
@@ -247,8 +268,10 @@ def steps_rank(rank: int, world: int):
     """Every serving case through the rules-aware steps on (2, 2): greedy
     tokens and logits (gathered to the global batch), each decode cache
     shard's shape against ``state_shardings``; hubert's encoder logits; and
-    the loss of one ``make_train_step`` with the rules (phi3.5-moe, batch
-    2); for each, the widths its layers computed on (``LayerWidths``).
+    the logits of a patch prompt's prefill (phi-3-vision: the patches go
+    over the summed vocab-parallel lookup); the loss of one
+    ``make_train_step`` with the rules (phi3.5-moe, batch 2); for each, the
+    widths its layers computed on (``LayerWidths``).
     DTensor's ``redistribute`` raises in this rank throughout."""
     import torch
 
@@ -318,6 +341,13 @@ def steps_rank(rank: int, world: int):
         enc = make_encoder_step(cfg, rules, ENCODE_B)(model, {"frame_embeds": torch.from_numpy(encode_frames(cfg))})
     widths.put(out, HUBERT)
     out[f"{HUBERT}|logits"] = rows(enc, ENCODE_B).numpy()
+    cfg = case_cfg(configs, VLM)
+    model = ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules)
+    with LayerWidths() as widths:
+        vlm, _ = make_prefill_step(cfg, rules, ENCODE_B)(
+            model, {k: torch.from_numpy(v) for k, v in patch_prompt(cfg).items()})
+    widths.put(out, VLM)
+    out[f"{VLM}|logits"] = rows(vlm, ENCODE_B).numpy()
     cfg = serve_cfg(configs, PHI)
     model = ShardedLM(DecoderLM.from_config(cfg, seed=SEED, device="cpu"), rules, trainable=True)
     batch = {k: torch.from_numpy(v).long() for k, v in train_batch(cfg, 2).items()}
@@ -340,7 +370,7 @@ def steps_rank(rank: int, world: int):
 # takes the whole batch).  Weights from DecoderLM.from_config's seed.
 # ---------------------------------------------------------------------------
 MAMBA = "mamba2-130m"
-TRAIN_ARCHS = [DANUBE, PHI, MAMBA, DANUBE_KV1]
+TRAIN_ARCHS = [DANUBE, PHI, MAMBA, DANUBE_KV1, DANUBE_V511]
 TRAIN_BATCHES = [4, 1]
 TRAIN_S, TRAIN_STEPS = 32, 2
 TRAIN_CLIP = 0.05  # under every case's gradient norm (the tests check), so the clip binds

@@ -259,17 +259,20 @@ def _single_process_flops_at(arch, shape_name, layers):
 @pytest.mark.slow
 def test_tensor_parallel_rank_counts_its_share_of_the_layers():
     """Reduced danube's train step on a fake (data 1, model 2) group: rank
-    0's FLOPs are those of ``embed``, ``head``, the CE and the norms (which
-    run whole on every rank) plus 1/2 of the period stack's, within 10%.
-    The stack's count is the single process's at 2 layers less its count at
-    1 layer, twice; the rest is what is left at 2 layers.  A rank that ran
-    every layer whole (the replicated layers before tensor parallelism)
-    counts the whole stack, which the check tells apart."""
+    0's FLOPs are 1/2 of the period stack's plus 1/2 of the head's and the
+    CE's (its 512-token vocabulary splits over model 2), within 10%.  The
+    stack's count is the single process's at 2 layers less its count at 1
+    layer, twice; the rest is what is left at 2 layers: the head product of
+    every CE chunk (the embedding lookup and the norms count no FLOPs).  A
+    rank that ran every layer whole (the replicated layers before tensor
+    parallelism) counts the whole stack, and one that ran the head and CE
+    over the whole vocabulary counts the whole rest: the check tells both
+    apart."""
     arch, shape_name = "h2o-danube-3-4b", "train_4k"
     f1, f2 = (_single_process_flops_at(arch, shape_name, n) for n in (1, 2))
     stack = 2 * (f2 - f1)
     rest = f2 - stack
-    want = rest + stack / 2
+    want = rest / 2 + stack / 2
     code = ("import json; from repro_torch.launch.dryrun import run_cell; "
             f"print(json.dumps(run_cell({arch!r}, {shape_name!r}, False, verbose=False, "
             "mesh_shape=(1, 2), smoke=True)))")
@@ -282,6 +285,8 @@ def test_tensor_parallel_rank_counts_its_share_of_the_layers():
     assert abs(got - want) <= 0.1 * want, (got, want, rest, stack)
     replicated = rest + stack
     assert abs(replicated - want) > 0.1 * want, (replicated, want)
+    whole_vocab = rest + stack / 2
+    assert abs(whole_vocab - want) > 0.1 * want, (whole_vocab, want, rest)
 
 
 @pytest.mark.slow

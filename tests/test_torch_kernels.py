@@ -304,6 +304,34 @@ def test_cuda_ssd_kernel_reads_strided_inputs(cuda):
     _close(st, want_st, SSD_TOL["float32"])
 
 
+# past the zoo's widths (tests/test_torch_ssd_chunk.py holds the plain
+# version there against the Pallas kernel): bf16 at N <= 128 takes the
+# tensor cores, P in tiles of 64; f32, and bf16 past N 128, the CUDA-core
+# kernel, N 256 in tiles of 64 rows
+SSD_WIDE_CARD = [(80, 136), (80, 256), (128, 136), (128, 256), (80, 128), (128, 128)]  # (P, N)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,N", SSD_WIDE_CARD, ids=[f"P{p}-N{n}" for p, n in SSD_WIDE_CARD])
+def test_cuda_ssd_kernels_at_wide_heads_and_states_match_plain(cuda, P, N, dtype):
+    """Each variant the rule picks at these widths against the plain version,
+    one launch a call.  f32 against the plain version in float64: at N 256
+    unit-normal B and C make |y| reach hundreds, and two f32 summation
+    orders part by more than 2e-4 where y cancels."""
+    args = _ssd_torch(_ssd_np(19, 2, 384, 4, P, 1, N), dtype, cuda)
+    tc = dtype == "bfloat16" and N <= SSD.N_TC_MAX
+    kern = SSD.ssd_scan_tc if tc else SSD.ssd_scan_cuda_core
+    assert SSD._variant_of(args[0], args[3], args[4]) == (SSD.TENSOR_CORE if tc else SSD.CUDA_CORE)
+    before, before_v = SSD.ssd_scan.launches, kern.launches
+    y, st = SSD.ssd_scan(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert (SSD.ssd_scan.launches, kern.launches) == (before + 1, before_v + 1)
+    precision = torch.float64 if dtype == "float32" else torch.float32
+    want_y, want_st = SSD.ssd_scan_plain(*args, chunk=128, precision=precision)
+    _close(y, want_y, SSD_TOL[dtype])
+    _close(st, want_st, SSD_TOL[dtype])
+
+
 def test_cuda_ssd_kernel_rejects_what_it_does_not_take(cuda):
     x, dt, A, Bm, Cm, D = _ssd_torch(_ssd_np(15, 1, 32, 2, 16, 1, 16), "float32", cuda)
     with pytest.raises(ValueError, match="multiple of chunk"):
@@ -318,6 +346,6 @@ def test_cuda_ssd_kernel_rejects_what_it_does_not_take(cuda):
         SSD.ssd_scan(x.transpose(2, 3), dt, A, Bm, Cm, D, chunk=16)
     with pytest.raises(ValueError, match="multiple of G"):
         SSD.ssd_scan(x, dt, A, Bm.expand(1, 32, 3, 16), Cm.expand(1, 32, 3, 16), D, chunk=16)
-    with pytest.raises(ValueError, match="P <= 64"):
-        wide = torch.zeros(1, 32, 2, 65, device=cuda)
-        SSD.ssd_scan(wide, dt, A, Bm, Cm, D, chunk=16)
+    with pytest.raises(ValueError, match="N <= 256"):
+        wide = torch.zeros(1, 32, 1, 257, device=cuda)
+        SSD.ssd_scan(x, dt, A, wide, wide, D, chunk=16)

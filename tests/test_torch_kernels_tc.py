@@ -268,6 +268,8 @@ MAMBA_STRIDES = [2048 * 1792, 1792, 64] + [2048 * 1792, 1792, 128] * 2  # x, B, 
         (torch.bfloat16, 64, 128, [2048 * 1796, 1796, 64] + MAMBA_STRIDES[3:], [0] * 3,
          SSD.CUDA_CORE),  # row stride 1796: not a multiple of 8
         (torch.bfloat16, 64, 128, MAMBA_STRIDES, [2, 3072, 3328], SSD.CUDA_CORE),
+        (torch.bfloat16, 128, 128, [8 * 128] * 9, [0] * 3, SSD.TENSOR_CORE),  # any P: tiles of 64
+        (torch.bfloat16, 128, 256, [8 * 256] * 9, [0] * 3, SSD.CUDA_CORE),  # N > 128: the shape rule
     ],
 )
 def test_ssd_variant_rule(dtype, P, N, strides, ptrs, want):

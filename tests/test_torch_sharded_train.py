@@ -10,8 +10,10 @@ One rank group of four CPU processes (``run_ranks``, gloo over a file store)
 runs every case (``_torch_rank_cases.train_rank``); this process never joins
 a process group.
 
-Held, for reduced danube, phi3.5-moe (at a capacity that drops no token) and
-mamba2 in f32, at a global batch of 4 (split over data) and of 1 (which
+Held, for reduced danube, phi3.5-moe (at a capacity that drops no token),
+mamba2 (tied embeddings, on V/2 rows a rank), danube with one kv head and
+danube at a vocabulary of 511 (``embed`` and ``head`` whole on every rank)
+in f32, at a global batch of 4 (split over data) and of 1 (which
 divides no data axis), at 2e-3: the loss and every updated parameter after
 one and after two steps; one step with a binding clip and one with 2
 microbatches against the single process; one step with labels masked
@@ -301,10 +303,16 @@ def test_global_norm_counts_every_element_once(ranks, arch, B):
 @pytest.mark.parametrize("arch,B", CASES, ids=CASE_IDS)
 def test_gathered_gradients_equal_across_model_group(ranks, arch, B):
     """Every rank of a model group computes the same gradient for a leaf it
-    gathers whole (the rule slices it over ``model``, never sums it)."""
+    gathers whole (the rule slices it over ``model``, never sums it).  The
+    leaves gathered whole are exactly those no layer splits over ``model``:
+    ``embed`` and ``head`` among them only where the vocabulary does not
+    split (reduced danube at 511)."""
     prefix = f"{C.train_key(arch, B)}|gathered_grad|"
     names = sorted(k[len(prefix):] for k in ranks[0] if k.startswith(prefix))
-    assert "final_norm" in names and len(names) > 3
+    whole = sorted(n for n, lay in TS._leaf_layouts(_cfg(arch), _stand_in_rules()).items()
+                   if not lay.keep and not lay.summed_over)
+    assert "final_norm" in names and names == whole
+    assert ("head" in names or "embed" in names) == (_cfg(arch).vocab % SIZES["model"] != 0)
     groups = {}
     for r in ranks:
         groups.setdefault(int(r["coord"][0]), []).append(r)

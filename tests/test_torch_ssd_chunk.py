@@ -9,8 +9,11 @@ kernel (interpret mode) at the chunk length.  Then the plain version and the mod
 path at chunk 256, the tile rule itself, and one SSM block on a jamba-ratio
 config with chunk 256.  Tolerances are the reference's: 2e-4 (f32) and 2e-2
 (bf16) for the SSD functions (tests/test_kernels.py:106), 2e-3 for the
-block.  On a card, the kernels themselves at chunk 256 against their plain
-version.
+block.  Then the widths past the zoo's (P 80 and 128, N 136 and 256): the
+plain version and the kernels' P tiles and 64-row sub-tiles against the
+Pallas kernel, and the tile rule at those widths.  On a card, the kernels
+themselves at chunk 256 against their plain version, and the raise past N
+256 (the kernels at the wide widths: tests/test_torch_kernels.py).
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_ssd_chunk.py
 """
@@ -101,7 +104,7 @@ def test_chunk256_matches_pallas_and_reference_chunked(fn, dtype):
         _close(st, want_st, tol, f"state against {name}")
 
 
-def sub_tile_scan(x, dt, A, Bm, Cm, D, *, chunk, tile):
+def sub_tile_scan(x, dt, A, Bm, Cm, D, *, chunk, tile, p_tile=None):
     """The kernels' arithmetic for a chunk longer than their tile, in plain
     PyTorch (f32, batched over batch and head): each chunk's a_cum summed
     once over the whole chunk, as the reference sums it; the chunk run as
@@ -110,7 +113,13 @@ def sub_tile_scan(x, dt, A, Bm, Cm, D, *, chunk, tile):
     earlier sub-tiles left, and the update ``S = exp(a_end − a_base) S +
     xᵀ(exp(a_end − a_j)·dt·B)``; ``a_base`` is the sum at the end of the
     previous sub-tile, 0 at the chunk's start; ``a_cum`` summed as the
-    kernels sum it (``chunk_a_cum``)."""
+    kernels sum it (``chunk_a_cum``).  With ``p_tile``, as the kernels' P
+    tiles: each run of ``p_tile`` of x's columns (the state's rows) scanned
+    on its own, C Bᵀ recomputed for each, and the results joined."""
+    if p_tile is not None and x.shape[3] > p_tile:
+        parts = [sub_tile_scan(x[..., p0:p0 + p_tile], dt, A, Bm, Cm, D, chunk=chunk, tile=tile)
+                 for p0 in range(0, x.shape[3], p_tile)]
+        return torch.cat([y for y, _ in parts], dim=3), torch.cat([st for _, st in parts], dim=2)
     Bb, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     xf, dtf = x.float(), dt.float()
@@ -184,6 +193,115 @@ def test_ssd_tile_rule(chunk, tile):
     assert chunk % tile == 0 and tile <= SSD.TILE_MAX
 
 
+# ---------------------------------------------------------------------------
+# Head and state widths past the zoo's (P 64, N 128): the Pallas kernel takes
+# any; the port's kernels take any P (tiles of 64 over the grid) and N up to
+# 256 (tiles of 64 rows past N 128)
+# ---------------------------------------------------------------------------
+WIDE = [(80, 136), (80, 256), (128, 136), (128, 256)]  # (P, N)
+WIDE_IDS = [f"P{p}-N{n}" for p, n in WIDE]
+WIDE_CHUNK, WIDE_S = 128, 384  # three chunks
+
+
+def exact_scan(x, dt, A, Bm, Cm, D):
+    """The SSD recurrence step by step in float64 (numpy inputs): ``S_t =
+    exp(dt_t A) S_{t-1} + dt_t x_t B_tᵀ``, ``y_t = S_t C_t + D x_t``.  The
+    yardstick of the f32 comparisons at N 256, where unit-normal B and C make
+    |y| reach about 270 and two f32 summation orders part by more than 2e-4
+    where y cancels (the plain version against the Pallas kernel: up to 1.27
+    times the allowance, each within 0.70 of it against this)."""
+    x, dt, A, Bm, Cm, D = (torch.from_numpy(np.asarray(a)).double() for a in (x, dt, A, Bm, Cm, D))
+    Bb, S, H, P = x.shape
+    rep = H // Bm.shape[2]
+    Bh, Ch = Bm.repeat_interleave(rep, dim=2), Cm.repeat_interleave(rep, dim=2)
+    state = torch.zeros((Bb, H, P, Bm.shape[3]), dtype=torch.float64)
+    ys = []
+    for t in range(S):
+        state = state * torch.exp(dt[:, t] * A)[..., None, None] + (
+            (dt[:, t, :, None] * x[:, t])[..., None] * Bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]) + D[:, None] * x[:, t])
+    return torch.stack(ys, dim=1).numpy(), state.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,N", WIDE, ids=WIDE_IDS)
+def test_plain_matches_pallas_at_wide_heads_and_states(P, N, dtype):
+    """The plain version at P 80 and 128, N 136 and 256, against the Pallas
+    kernel in interpret mode: the function the kernels are held to on the
+    card, at the widths they now take.  bf16 at 2e-2 directly; f32 at 2e-4
+    with both held against the exact recurrence (``exact_scan``)."""
+    arrays = ssd_inputs(7, 1, WIDE_S, 2, P, 1, N)
+    jargs, targs = _pair(arrays, dtype)
+    y, st = SSD.ssd_scan_plain(*targs, chunk=WIDE_CHUNK)
+    assert tuple(y.shape) == (1, WIDE_S, 2, P) and tuple(st.shape) == (1, 2, P, N)
+    want_y, want_st = rops.ssd_scan(*jargs, chunk=WIDE_CHUNK, interpret=True)
+    if dtype == "float32":
+        exact_y, exact_st = exact_scan(*arrays)
+        for name, (gy, gst) in (("plain", (y, st)), ("pallas", (want_y, want_st))):
+            _close(gy, exact_y, SSD_TOL[dtype], f"{name} y")
+            _close(gst, exact_st, SSD_TOL[dtype], f"{name} state")
+        return
+    _close(y, want_y, SSD_TOL[dtype], "y")
+    _close(st, want_st, SSD_TOL[dtype], "state")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,N", WIDE, ids=WIDE_IDS)
+def test_p_tiles_and_wide_sub_tiles_match_pallas(P, N, dtype):
+    """What the kernels compute at these widths, emulated: the state's rows
+    in tiles of ``P_TILE`` (each recomputing C Bᵀ), each chunk of 128 rows
+    as sub-tiles of ``ssd_tile(128, N)`` = 64 rows at N > 128, against the
+    Pallas kernel at the whole chunk (bf16, 2e-2) and, in f32, against the
+    exact recurrence the Pallas kernel is held to above (2e-4)."""
+    tile = SSD.ssd_tile(WIDE_CHUNK, N)
+    assert tile == 64 and SSD.P_TILE == 64
+    arrays = ssd_inputs(8, 1, WIDE_S, 2, P, 1, N)
+    jargs, targs = _pair(arrays, dtype)
+    y, st = sub_tile_scan(*targs, chunk=WIDE_CHUNK, tile=tile, p_tile=SSD.P_TILE)
+    if dtype == "float32":
+        want_y, want_st = exact_scan(*arrays)
+    else:
+        want_y, want_st = rops.ssd_scan(*jargs, chunk=WIDE_CHUNK, interpret=True)
+    _close(y, want_y, SSD_TOL[dtype], "y")
+    _close(st, want_st, SSD_TOL[dtype], "state")
+
+
+@pytest.mark.parametrize(
+    "chunk,N,tile",
+    [(128, 256, 64), (256, 136, 64), (100, 256, 50), (64, 256, 64), (256, 128, 128), (8, 256, 8)],
+)
+def test_ssd_tile_rule_depends_on_the_state_width(chunk, N, tile):
+    """Past N 128 a tile holds at most 64 rows (B and C of 128 rows at N 256
+    would not fit the CUDA-core kernel's shared memory); up to 128 the rule
+    is the zoo's."""
+    assert SSD.ssd_tile(chunk, N) == tile
+    assert chunk % tile == 0 and tile <= (SSD.TILE_MAX if N <= SSD.N_TC_MAX else SSD.WIDE_TILE_MAX)
+
+
+def test_plain_version_in_float64_is_the_exact_recurrence():
+    """``ssd_scan_plain(..., precision=torch.float64)``, the yardstick of the
+    f32 kernels past N 128 on the card, against the step-by-step recurrence
+    in float64, far inside the f32 tolerance."""
+    arrays = ssd_inputs(10, 1, WIDE_S, 2, 128, 1, 256)
+    _, targs = _pair(arrays, "float32")
+    y, st = SSD.ssd_scan_plain(*targs, chunk=WIDE_CHUNK, precision=torch.float64)
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    want_y, want_st = exact_scan(*arrays)
+    _close(y, want_y, 1e-5, "y")
+    _close(st, want_st, 1e-5, "state")
+
+
+def test_variant_sends_wide_bf16_states_to_the_cuda_core_kernel():
+    """A rule on the shape: aligned bf16 goes to the tensor cores at N ≤ 128
+    whatever P, and to the CUDA-core kernel at 128 < N ≤ 256."""
+    strides, ptrs = [8 * 64] * 9, [0] * 3
+    assert SSD.variant(torch.bfloat16, 128, 128, strides, ptrs) == SSD.TENSOR_CORE
+    assert SSD.variant(torch.bfloat16, 80, 64, strides, ptrs) == SSD.TENSOR_CORE
+    assert SSD.variant(torch.bfloat16, 128, 136, strides, ptrs) == SSD.CUDA_CORE
+    assert SSD.variant(torch.bfloat16, 64, 256, strides, ptrs) == SSD.CUDA_CORE
+    assert SSD.variant(torch.float32, 128, 128, strides, ptrs) == SSD.CUDA_CORE
+
+
 def _jamba_ratio_cfgs(use_kernels):
     """jamba-1.5-large's SSM ratios (expand 2, P = N / 2, one group) at smoke
     width, with its chunk of 256: d 64, d_inner 128, 4 heads of P 32, N 64."""
@@ -250,12 +368,21 @@ def test_cuda_ssd_kernels_at_chunk256_match_plain(cuda, dtype):
 
 
 def test_cuda_ssd_kernels_still_refuse_wide_heads_and_states(cuda):
-    """The domain left open: P > 64 and N > 128 raise; so does a chunk
-    that does not divide S."""
-    _, (x, dt, A, Bm, Cm, D) = _pair(ssd_inputs(3, 1, 256, 2, 65, 1, 129), "float32", cuda)
-    with pytest.raises(ValueError, match="got P=65, N=128"):
-        SSD.ssd_scan(x, dt, A, Bm[..., :128], Cm[..., :128], D, chunk=256)
-    with pytest.raises(ValueError, match="got P=64, N=129"):
-        SSD.ssd_scan(x[..., :64], dt, A, Bm, Cm, D, chunk=256)
+    """The domain's limit: N past 256 raises, naming the limit, whatever P;
+    the tensor-core kernel refuses N past 128 (the rule sends such bf16 to
+    the CUDA-core kernel); a chunk that does not divide S raises.  P has no
+    limit of its own: P 65 runs."""
+    _, (x, dt, A, Bm, Cm, D) = _pair(ssd_inputs(3, 1, 256, 2, 65, 1, 257), "float32", cuda)
+    with pytest.raises(ValueError, match="N <= 256 .*got N=257"):
+        SSD.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256)
+    with pytest.raises(ValueError, match="N <= 256 .*got N=257"):
+        SSD.ssd_scan_cuda_core(x[..., :64], dt, A, Bm, Cm, D, chunk=256)
+    with pytest.raises(ValueError, match="N <= 128"):
+        _, bf = _pair(ssd_inputs(3, 1, 256, 2, 64, 1, 136), "bfloat16", cuda)
+        SSD.ssd_scan_tc(*bf, chunk=256)
     with pytest.raises(ValueError, match="multiple of chunk"):
         SSD.ssd_scan(x[..., :64], dt, A, Bm[..., :128], Cm[..., :128], D, chunk=96)
+    y, st = SSD.ssd_scan(x, dt, A, Bm[..., :128], Cm[..., :128], D, chunk=256)
+    want_y, want_st = SSD.ssd_scan_plain(x, dt, A, Bm[..., :128], Cm[..., :128], D, chunk=256)
+    _close(y, want_y.cpu().numpy(), SSD_TOL["float32"], "y at P 65")
+    _close(st, want_st.cpu().numpy(), SSD_TOL["float32"], "state at P 65")

@@ -12,17 +12,19 @@ joins a process group.
 Every step runs tensor-parallel on model (``models/parallel.py``), with
 DTensor's ``redistribute`` made to raise in the ranks.  Held: greedy tokens
 of reduced phi3.5-moe (batch 2, and batch 1, which divides no data axis),
-danube, jamba and danube with grouped kv heads (4 over 2, at batch 2 and 1;
-4 over 1, gathered; 3 over 1, which do not split) through
+danube, jamba, danube with grouped kv heads (4 over 2, at batch 2 and 1;
+4 over 1, gathered; 3 over 1, which do not split) and danube at a
+vocabulary of 511, which does not split over model 2, through
 ``make_prefill_step`` and ``make_decode_step`` with rules, exactly equal to
 the single-process run
 (tests/test_serving.py:51's standard), with their logits at 2e-3; each
 rank's decode-cache shards shaped as ``state_shardings`` lays them out;
-hubert's ``make_encoder_step`` logits at 2e-3; and ``make_train_step`` with
+hubert's ``make_encoder_step`` logits at 2e-3; phi-3-vision's prefill
+logits on a patch prompt at 2e-3; and ``make_train_step`` with
 the rules running, its loss the single process's at 2e-3
 (tests/test_torch_sharded_train.py holds the sharded step in full); and
 the widths each rank's layers compute on (H/2 query heads, H_ssm/2 SSD
-heads, d_ff/2).  The MoE
+heads, d_ff/2, V/2 head columns and embedding rows).  The MoE
 configs run at a capacity that drops no token
 (``_torch_rank_cases.NO_DROP_CAPACITY``): a data shard's capacity is that of
 its own tokens, the single process's that of the global batch.
@@ -96,30 +98,48 @@ def test_encoder_logits_match_single_process(ranks):
         np.testing.assert_allclose(r[f"{C.HUBERT}|logits"], want.numpy(), atol=TOL, rtol=TOL)
 
 
+def test_patch_prompt_logits_match_single_process(ranks):
+    """phi-3-vision's prefill on a prompt whose first positions are patch
+    embeddings: the patches replace those positions after the ranks' V/2
+    lookups are summed, so the logits are the single process's (2e-3)."""
+    cfg = C.case_cfg(tconfigs, C.VLM)
+    assert cfg.frontend == "patch" and cfg.vocab % 2 == 0
+    model = DecoderLM.from_config(cfg, seed=C.SEED, device="cpu")
+    want, _ = make_prefill_step(cfg)(model, {k: torch.from_numpy(v) for k, v in C.patch_prompt(cfg).items()})
+    for r in ranks:
+        np.testing.assert_allclose(r[f"{C.VLM}|logits"], want.numpy(), atol=TOL, rtol=TOL)
+
+
 def _want_widths(cfg, m=2):
     """The widths a rank's layers compute on, on a model axis of ``m``: H/m
-    query heads, H_ssm/m SSD heads and d_ff/m where the axis divides them,
-    all of them where it does not."""
+    query heads, H_ssm/m SSD heads, d_ff/m, and V/m head columns and
+    embedding rows where the axis divides them, all of them where it does
+    not."""
     def part(n):
         return n // m if n % m == 0 else n
 
     return {"attn_heads": [part(cfg.n_heads)] if "attn" in cfg.period else [],
             "ssd_heads": [part(cfg.ssm_heads)] if "ssm" in cfg.period else [],
-            "mlp_hidden": [part(cfg.d_ff)] if "mlp" in cfg.mlp_pattern else []}
+            "mlp_hidden": [part(cfg.d_ff)] if "mlp" in cfg.mlp_pattern else [],
+            "head_cols": [part(cfg.vocab)],
+            "embed_rows": [part(cfg.vocab)] if cfg.frontend != "frame" else []}
 
 
 WIDTH_CASES = [(f"{a}|{b}", C.serve_cfg(tconfigs, a)) for a, b in C.SERVE_CASES] + [
-    (C.HUBERT, C.case_cfg(tconfigs, C.HUBERT)), ("train", C.serve_cfg(tconfigs, C.PHI))]
+    (C.HUBERT, C.case_cfg(tconfigs, C.HUBERT)), (C.VLM, C.case_cfg(tconfigs, C.VLM)),
+    ("train", C.serve_cfg(tconfigs, C.PHI))]
 
 
 @pytest.mark.parametrize("key,cfg", WIDTH_CASES, ids=[k.replace("|", "-B") for k, _ in WIDTH_CASES])
 def test_layers_compute_on_this_ranks_share(ranks, key, cfg):
     """Tensor-parallel on model 2: each rank's attention core sees H/2 query
-    heads (3 heads do not split: all 3), its SSD scan H_ssm/2 heads and its
-    dense MLP a hidden width of d_ff/2, in prefill, decode, encode and
-    training."""
+    heads (3 heads do not split: all 3), its SSD scan H_ssm/2 heads, its
+    dense MLP a hidden width of d_ff/2, and its head product and embedding
+    lookup V/2 of the vocabulary (511 does not split: all of it), in
+    prefill, decode, encode and training."""
     want = _want_widths(cfg)
     assert cfg.n_heads != 3 or want["attn_heads"] == [3]
+    assert cfg.vocab != 511 or want["head_cols"] == [511]
     for r in ranks:
         for kind, widths in want.items():
             assert r[f"{key}|seen|{kind}"].tolist() == widths, kind
