@@ -109,7 +109,17 @@ its check does not hold:
    (``tp_serve`` lines; the kernel sweeps have rows at a rank's shapes);
    in (a) and (b) each rank's head and embedding on its 16000 of danube's
    32000 vocabulary rows, the logit columns gathered by the steps (the
-   head columns each rank saw, checked and printed);
+   head columns each rank saw, checked and printed); then on three gloo
+   ranks of the card (mesh data 1 x model 3), attention whose heads the
+   model axis does not divide: deepseek-coder-33b at full width, its 56
+   query heads split 19 / 19 / 18 and each rank's core run once for each
+   run of heads with one q-to-kv mapping (2 / 3 / 2 runs across its kv
+   groups of 7), (d) f32 cut to 2 layers, 2 x 512 then 8 greedy steps,
+   tokens equal to one process and logits within 2e-3, and (e) bf16 cut to
+   8 of 62 layers, 4 x 1024 then 8 steps, tokens equal across the ranks;
+   each rank's flash launches exactly its layers x its runs, each at its
+   run's q / k shapes, each run of the first layer held against the plain
+   version;
    the lm-100m example at
    its defaults (300 f32 steps), whose loss must fall; and a checkpoint
    round trip at lm-test size, bit for bit;
@@ -206,6 +216,17 @@ TP_F32_LAYERS, TP_F32_B, TP_F32_S = 2, 2, 512
 TP_BF16_B, TP_BF16_S = 4, 1024
 TP_NEW = 8
 TP_RANKS = 2
+# then on three gloo ranks of the card, mesh data 1 x model 3, attention
+# whose heads the model axis does not divide: deepseek-coder-33b at its
+# published widths (d 7168, 56 q / 8 kv heads of 128, d_ff 19200, vocab
+# 32256), its 56 heads split 19 / 19 / 18, each rank's crossing kv groups
+# of 7 (2 / 3 / 2 runs of one q-to-kv mapping, one flash launch each);
+# (d) f32 cut to 2 layers, 2 x 512 then 8 greedy steps, held against one
+# process; (e) bf16 cut to 8 of 62 layers, 4 x 1024 then 8 steps (each rank
+# builds the whole model before sharding it: 9.4 GB a rank at 8 layers)
+TP_UNEVEN_ARCH = "deepseek-coder-33b"
+TP_UNEVEN_RANKS = 3
+TP_UNEVEN_BF16_LAYERS = 8
 CHECK_STEPS = 8
 # prefill against step-by-step decode at a capacity that drops no token:
 # decode routes B tokens a step, prefill B*S (tests/test_serving.py:19)
@@ -340,6 +361,11 @@ KERNEL_SHAPES = [
     # a rank's heads in tp_serve (model 2): danube's 32 / 8 heads halved
     ("tp_serve (b): a rank's prefill", TP_BF16_B, TP_BF16_S, 16, 4, 120, torch.bfloat16, True, 4096),
     ("tp_serve (a): a rank's prefill, f32", TP_F32_B, TP_F32_S, 16, 4, 120, torch.float32, True, 4096),
+    # the runs of a rank's heads in tp_serve (model 3): deepseek's whole kv
+    # groups of 7 (two of them), and a part of a group (rank 0's last 5)
+    ("tp_serve (e): a run of 2 whole groups", TP_BF16_B, TP_BF16_S, 14, 2, 128, torch.bfloat16, True, None),
+    ("tp_serve (e): a run of part of a group", TP_BF16_B, TP_BF16_S, 5, 1, 128, torch.bfloat16, True, None),
+    ("tp_serve (d): a run of 2 whole groups, f32", TP_F32_B, TP_F32_S, 14, 2, 128, torch.float32, True, None),
 ]
 
 
@@ -1712,17 +1738,18 @@ def tp_kernel_vs_plain(entry: str, call, dtype) -> dict:
                 tol_share=max(share_y, share_s))
 
 
-def tp_serve_rank(rank: int, world: int) -> dict:
+def tp_serve_rank(rank: int, world: int, parts: str) -> dict:
     """One rank of ``tp_serve`` on a (data 1, model ``world``) mesh of the
-    card: (a), (b) and (c) in turn, each with the launch counts of its
-    counted call, the inputs of that call's kernels held against their
-    plain versions, and its outputs or their errors against one process."""
+    card: the ``parts`` of (a) to (e) in turn, each with the launch counts of
+    its counted call, the inputs of that call's kernels held against their
+    plain versions (every run of the first layer's heads), and its outputs
+    or their errors against one process."""
     from repro_torch import configs
     from repro_torch.distributed.sharding import ShardedLM, ShardingRules, gather, shard_state
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import model as M
-    from repro_torch.models.parallel import MeshContext
+    from repro_torch.models.parallel import MeshContext, head_runs
     from repro_torch.models.ssm import ssm_block, ssm_param_shapes
     from repro_torch.serving.engine import grow_kv
 
@@ -1730,6 +1757,7 @@ def tp_serve_rank(rank: int, world: int) -> dict:
     kernels = kernel_fns()
     mesh = make_smoke_mesh(1, world, device_type="cuda")
     rules = ShardingRules(mesh, fsdp_axes=("data",))
+    ctx = MeshContext(mesh, batch_axes=("data",))
     out = {}
 
     def counted(fn, key):
@@ -1773,9 +1801,10 @@ def tp_serve_rank(rank: int, world: int) -> dict:
         out[f"{key}|prefill_ms"], out[f"{key}|decode_ms"] = np.array(prefill_ms), np.array(decode_ms)
         out[f"{key}|tokens"] = toks.numpy()
         out[f"{key}|finite"] = np.array(bool(torch.isfinite(logits).all()))
-        out[f"{key}|flash_shapes"] = np.array([list(a[0].shape) + list(a[1].shape) for a, _ in
-                                               flash.calls[:cfg.n_layers]])
-        out[f"{key}|kernel"] = np.array(json.dumps(tp_kernel_vs_plain("flash_attention", flash.calls[0], cfg.torch_dtype)))
+        runs = len(head_runs(cfg, *ctx.heads(cfg.n_heads)))
+        out[f"{key}|flash_shapes"] = np.array([list(a[0].shape) + list(a[1].shape) for a, _ in flash.calls])
+        out[f"{key}|kernel"] = np.array(json.dumps([tp_kernel_vs_plain("flash_attention", call, cfg.torch_dtype)
+                                                    for call in flash.calls[:runs]]))
         if single:
             out[f"{key}|one_tokens"] = one[0].numpy()
             out[f"{key}|logits_err"] = np.array((logits - one[1]).abs().max().item())
@@ -1784,11 +1813,17 @@ def tp_serve_rank(rank: int, world: int) -> dict:
         torch.cuda.empty_cache()
 
     full = configs.get(TP_ARCH)
-    serve("a", dataclasses.replace(full, n_layers=TP_F32_LAYERS, dtype="float32"), TP_F32_B, TP_F32_S, True)
-    serve("b", full, TP_BF16_B, TP_BF16_S, False)
+    if "a" in parts:
+        serve("a", dataclasses.replace(full, n_layers=TP_F32_LAYERS, dtype="float32"), TP_F32_B, TP_F32_S, True)
+    if "b" in parts:
+        serve("b", full, TP_BF16_B, TP_BF16_S, False)
+    uneven = configs.get(TP_UNEVEN_ARCH)
+    if "d" in parts:
+        serve("d", dataclasses.replace(uneven, n_layers=TP_F32_LAYERS, dtype="float32"), TP_F32_B, TP_F32_S, True)
+    if "e" in parts:
+        serve("e", dataclasses.replace(uneven, n_layers=TP_UNEVEN_BF16_LAYERS), TP_BF16_B, TP_BF16_S, False)
 
-    ctx = MeshContext(mesh, batch_axes=("data",))
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16") if "c" in parts else ():
         key = f"c|{dtype}"
         cfg = dataclasses.replace(configs.get(HYBRID), dtype=dtype)
         g = torch.Generator(device="cuda").manual_seed(9)
@@ -1811,62 +1846,90 @@ def tp_serve_rank(rank: int, world: int) -> dict:
     return out
 
 
-def tp_serve_check(configs, kernels) -> dict:
-    """Tensor-parallel serving on two gloo ranks of the card (``run_ranks``,
-    mesh data 1 x model 2), each rank on its half of the heads and d_ff:
-    (a) danube f32 at full width cut to 2 layers, ``make_prefill_step`` on 2
-    x 512 then 8 greedy ``make_decode_step`` steps, each rank's logits within
-    2e-3 of one process and its tokens equal, exactly 2 CUDA-core flash
-    launches a prefill at q (2, 512, 16, 120), k/v (2, 512, 4, 120); (b)
-    danube bf16 at full width and depth, 4 x 1024 then 8 steps, exactly 24
-    tensor-core flash launches a prefill at 16 / 4 heads, the kernel against
-    its plain version on the first layer's inputs at 2e-2, each rank's peak
-    memory and wall ms (gloo through the host on one card: not a speed);
-    (c) one jamba SSM layer at full width, B 1 x S 8192: one SSD launch a
-    call on 128 heads, the kernel against its plain version on those inputs
-    (2e-2 bf16, 2e-4 f32), the f32 layer within 2e-3 of one process.
-    Returns the launch counts by run."""
-    from repro_torch.distributed.ranks import run_ranks
+def tp_serve_rows(configs, kernels, ranks: list, ranks_s: float, arch: str, parts: tuple,
+                  want_runs: list) -> dict:
+    """Checks each serving part's ranks and prints its ``tp_serve`` line:
+    each rank's flash launches exactly its layers x its runs of heads
+    (``want_runs`` a rank), the q / k shapes of every launch, each run of the
+    first layer against the plain version, tokens equal across the ranks
+    and, where one process ran too, equal to its tokens with the logits
+    within 2e-3.  Returns the launch counts by run."""
+    from repro_torch.models.parallel import head_range, head_runs, kv_heads_read
 
-    t0 = time.monotonic()
-    zero_counts(kernels)
-    ranks = run_ranks(tp_serve_rank, TP_RANKS, device="cuda", timeout_s=900)
-    ranks_s = time.monotonic() - t0
-    cfg = configs.get(TP_ARCH)
-    H, KV, hd = cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS, cfg.head_dim
-    runs = {}
-    for key, B, S, layers, dtype in (("a", TP_F32_B, TP_F32_S, TP_F32_LAYERS, "float32"),
-                                     ("b", TP_BF16_B, TP_BF16_S, cfg.n_layers, "bfloat16")):
+    cfg, world = configs.get(arch), len(ranks)
+    hd, runs = cfg.head_dim, {}
+    for key, B, S, layers, dtype in parts:
         variant = "tc" if dtype == "bfloat16" else "cuda_core"
-        want = {"flash_attention": layers, f"flash_attention_{variant}": layers}
-        row = dict(part=key, arch=TP_ARCH, dtype=dtype, layers=layers, batch=B, prompt_len=S, new_tokens=TP_NEW,
-                   mesh="data 1 x model 2", backend="gloo", ranks=[])
+        row = dict(part=key, arch=arch, dtype=dtype, layers=layers, batch=B, prompt_len=S, new_tokens=TP_NEW,
+                   mesh=f"data 1 x model {world}", backend="gloo", ranks=[])
         for r, res in enumerate(ranks):
+            h0, h1 = head_range(cfg.n_heads, world, r)
+            heads = head_runs(cfg, h0, h1)
+            check(len(heads) == want_runs[r], f"tp_serve ({key}) rank {r}: heads {h0}-{h1} in runs {heads}, "
+                                              f"want {want_runs[r]}")
+            n = layers * len(heads)
             counts = {name: int(res[f"{key}|launches|{name}"]) for name in kernels}
-            check_counts(f"{TP_ARCH} tp_serve ({key}) rank {r}", counts, want, "prefill")
-            runs[f"{TP_ARCH} {dtype} tp_serve ({key}) rank {r}"] = counts
+            check_counts(f"{arch} tp_serve ({key}) rank {r}", counts,
+                         {"flash_attention": n, f"flash_attention_{variant}": n}, "prefill")
+            runs[f"{arch} {dtype} tp_serve ({key}) rank {r}"] = counts
+            want = [[B, S, hi - lo, hd, B, S, c1 - c0, hd]
+                    for lo, hi in heads for c0, c1 in [kv_heads_read(cfg, lo, hi)]]
             shapes = res[f"{key}|flash_shapes"].tolist()
-            check(shapes == [[B, S, H, hd, B, S, KV, hd]] * layers,
-                  f"tp_serve ({key}) rank {r}: flash saw q/k shapes {shapes}, want {[B, S, H, hd]} / {[B, S, KV, hd]}")
+            check(shapes == want * layers, f"tp_serve ({key}) rank {r}: flash saw q/k shapes {shapes[:len(want)]} "
+                                           f"... ({len(shapes)} calls), want {want} a layer")
             kern = json.loads(str(res[f"{key}|kernel"]))
-            check(kern["ok"], f"tp_serve ({key}) rank {r}: flash kernel vs plain {kern}")
+            check(len(kern) == len(heads) and all(k["ok"] for k in kern),
+                  f"tp_serve ({key}) rank {r}: flash kernel vs plain {kern}")
             toks = res[f"{key}|tokens"]
             check(bool(res[f"{key}|finite"]) and toks.shape == (B, TP_NEW) and ((0 <= toks) & (toks < cfg.vocab)).all(),
                   f"tp_serve ({key}) rank {r}: logits not finite or tokens {toks.shape}")
             check(np.array_equal(toks, ranks[0][f"{key}|tokens"]), f"tp_serve ({key}): ranks' tokens differ")
-            head_cols = check_vocab_widths(res, key, cfg.vocab, TP_RANKS, f"tp_serve ({key}) rank {r}")
-            rank = dict(launches=counts, kernel=kern, head_cols=head_cols[0], peak_gb=float(res[f"{key}|peak_gb"]),
+            head_cols = check_vocab_widths(res, key, cfg.vocab, world, f"tp_serve ({key}) rank {r}")
+            rank = dict(heads=[h0, h1], runs=[hi - lo for lo, hi in heads], launches=counts, kernel=kern,
+                        head_cols=head_cols[0], peak_gb=float(res[f"{key}|peak_gb"]),
                         prefill_ms=float(res[f"{key}|prefill_ms"]), decode_ms_per_step=float(res[f"{key}|decode_ms"]))
-            if key == "a":
+            if f"{key}|one_tokens" in res:
                 check(np.array_equal(toks, res[f"{key}|one_tokens"]),
-                      f"tp_serve (a) rank {r}: tokens {toks.tolist()}, one process {res['a|one_tokens'].tolist()}")
-                check(float(res["a|logits_share"]) <= 1.0,
-                      f"tp_serve (a) rank {r}: logits differ from one process by {float(res['a|logits_err'])}")
-                rank.update(logits_max_abs_err=float(res["a|logits_err"]),
-                            logits_tol_share=float(res["a|logits_share"]), tokens_equal_one_process=True)
+                      f"tp_serve ({key}) rank {r}: tokens {toks.tolist()}, one process {res[f'{key}|one_tokens'].tolist()}")
+                check(float(res[f"{key}|logits_share"]) <= 1.0,
+                      f"tp_serve ({key}) rank {r}: logits differ from one process by {float(res[f'{key}|logits_err'])}")
+                rank.update(logits_max_abs_err=float(res[f"{key}|logits_err"]),
+                            logits_tol_share=float(res[f"{key}|logits_share"]), tokens_equal_one_process=True)
             row["ranks"].append(rank)
         row.update(ms_note="gloo through the host on one card: not a speed", run_ranks_s=ranks_s)
         print("tp_serve " + json.dumps(row), flush=True)
+    return runs
+
+
+def tp_serve_check(configs, kernels) -> dict:
+    """Tensor-parallel serving on gloo ranks of the card (``run_ranks``).
+    On two ranks, mesh data 1 x model 2, each rank on its half of the heads
+    and d_ff: (a) danube f32 at full width cut to 2 layers,
+    ``make_prefill_step`` on 2 x 512 then 8 greedy ``make_decode_step``
+    steps, each rank's logits within 2e-3 of one process and its tokens
+    equal, exactly 2 CUDA-core flash launches a prefill at q (2, 512, 16,
+    120), k/v (2, 512, 4, 120); (b) danube bf16 at full width and depth, 4 x
+    1024 then 8 steps, exactly 24 tensor-core flash launches a prefill at 16
+    / 4 heads, the kernel against its plain version on the first layer's
+    inputs at 2e-2, each rank's peak memory and wall ms (gloo through the
+    host on one card: not a speed); (c) one jamba SSM layer at full width, B
+    1 x S 8192: one SSD launch a call on 128 heads, the kernel against its
+    plain version on those inputs (2e-2 bf16, 2e-4 f32), the f32 layer
+    within 2e-3 of one process.  Then on three ranks, mesh data 1 x model
+    3, deepseek-coder-33b at full width, whose 56 heads split 19 / 19 / 18
+    in 2 / 3 / 2 runs: (d) as (a) at 2 layers and (e) as (b) at 8 layers,
+    each rank's flash launches its layers x its runs, each run of the first
+    layer against the plain version.  Returns the launch counts by run."""
+    from repro_torch.distributed.ranks import run_ranks
+
+    t0 = time.monotonic()
+    zero_counts(kernels)
+    ranks = run_ranks(tp_serve_rank, TP_RANKS, args=("abc",), device="cuda", timeout_s=900)
+    ranks_s = time.monotonic() - t0
+    full = configs.get(TP_ARCH)
+    runs = tp_serve_rows(configs, kernels, ranks, ranks_s, TP_ARCH,
+                         (("a", TP_F32_B, TP_F32_S, TP_F32_LAYERS, "float32"),
+                          ("b", TP_BF16_B, TP_BF16_S, full.n_layers, "bfloat16")), [1] * TP_RANKS)
     ssm_heads = configs.get(HYBRID).ssm_heads // TP_RANKS
     for dtype in ("float32", "bfloat16"):
         key = f"c|{dtype}"
@@ -1890,6 +1953,11 @@ def tp_serve_check(configs, kernels) -> dict:
                             state_tol_share=float(res[f"{key}|state_share"]))
             row["ranks"].append(rank)
         print("tp_serve " + json.dumps(row), flush=True)
+    t1 = time.monotonic()
+    ranks = run_ranks(tp_serve_rank, TP_UNEVEN_RANKS, args=("de",), device="cuda", timeout_s=900)
+    runs.update(tp_serve_rows(configs, kernels, ranks, time.monotonic() - t1, TP_UNEVEN_ARCH,
+                              (("d", TP_F32_B, TP_F32_S, TP_F32_LAYERS, "float32"),
+                               ("e", TP_BF16_B, TP_BF16_S, TP_UNEVEN_BF16_LAYERS, "bfloat16")), [2, 3, 2]))
     print(f"tp_serve: phase {time.monotonic() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     return runs

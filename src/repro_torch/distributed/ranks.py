@@ -1,9 +1,11 @@
 """Rank groups, each rank in a process of its own: the one launcher the tests
 and ``chip_smoke.py`` share.
 
-    results = run_ranks(fn, world=4, args=(...,), device="cpu")
+    results = run_ranks(fn, world=4, args=(...,))                 # on the card
+    results = run_ranks(fn, world=4, args=(...,), device="cpu")   # on the CPU
 
-starts ``world`` child interpreters.  Each joins one process group through a
+starts ``world`` child interpreters, rank r on card ``r % device_count``
+unless the caller asks for the CPU.  Each joins one process group through a
 file store in a new temporary directory (no TCP port, so two groups started
 at once never meet), runs ``fn(rank, world, *args)`` and writes the dict of
 numpy arrays it returns to a file; ``run_ranks`` returns the dicts by rank.
@@ -42,13 +44,14 @@ def run_ranks(
     *,
     args: tuple = (),
     backend: str = "gloo",
-    device: str = "cpu",
+    device: str = "cuda",
     timeout_s: float = 120.0,
     env: Optional[Dict[str, str]] = None,
 ) -> List[Dict[str, np.ndarray]]:
     """Run ``fn(rank, world, *args)`` in ``world`` processes of one group and
-    return each rank's dict of arrays, in rank order.  ``device="cuda"``
-    puts rank r on card ``r % device_count`` before the group starts."""
+    return each rank's dict of arrays, in rank order.  ``device="cuda"``, the
+    default, puts rank r on card ``r % device_count`` before the group
+    starts; ``device="cpu"`` leaves the ranks on the CPU."""
     if "<locals>" in fn.__qualname__:
         raise ValueError(f"{fn.__qualname__}: a rank function must be defined at module level")
     tmp = tempfile.mkdtemp(prefix="ranks_")
@@ -122,6 +125,9 @@ def _child(tmp: str, rank: int) -> None:
         job = json.load(f)
     torch.set_num_threads(1)
     if job["device"] == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("run_ranks(device='cuda'): no CUDA card here; pass device='cpu' to run "
+                               "the ranks on the CPU")
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(
         job["backend"], init_method="file://" + os.path.join(tmp, "store"), rank=rank,

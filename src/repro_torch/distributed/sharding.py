@@ -42,7 +42,9 @@ import torch
 from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import DecoderLM, param_shapes
-from repro_torch.models.parallel import attn_split, kv_split, mlp_split, ssm_split, vocab_split
+from repro_torch.models.parallel import (
+    attn_even, attn_split, kv_split, mlp_split, ssm_split, vocab_split,
+)
 
 
 def P(*entries) -> tuple:
@@ -467,11 +469,13 @@ class _GatherOnUse(torch.autograd.Function):
         ``model``) stays split: each rank's cotangent is that of its own
         experts, heads or rows, summed over the batch axes only;
       * a leaf gathered whole of which the ranks of a model group read
-        different columns (``_Layout.summed_over``: a tensor-parallel
-        layer's ``wk/wv`` whose kv heads do not split over ``model``, the
-        SSM's ``in_proj``, conv and per-head leaves) is SUMMED over
-        ``model`` too: each rank's cotangent covers only the columns its
-        heads read, and ranks overlap where they share a kv head or B/C.
+        different columns or rows (``_Layout.summed_over``: a
+        tensor-parallel layer's ``wk/wv`` whose kv heads do not split over
+        ``model``, every attention leaf off the even head split
+        (``parallel.attn_even``), the SSM's ``in_proj``, conv and per-head leaves) is
+        SUMMED over ``model`` too: each rank's cotangent covers only the
+        columns or rows its heads read, and ranks overlap where they share
+        a kv head or B/C.
     """
 
     @staticmethod
@@ -497,6 +501,7 @@ def gather_on_use(local: torch.Tensor, mesh, layout: _Layout, sum_axes: tuple):
 # A model stored sharded
 # ---------------------------------------------------------------------------
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+_ATTN_LEAVES = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
 _SSM_READ_BY_HEAD = ("in_proj", "conv_w", "conv_b", "gate_norm", "A_log", "D", "dt_bias")
 
 
@@ -506,6 +511,8 @@ def _model_rule(cfg: ArchConfig, m: int, mixer: str, mlp: str, path: Tuple[str, 
     (``models/parallel.py``) read of it."""
     part, name = path[0], path[-1]
     if part == "mixer" and mixer == "attn" and attn_split(cfg, m):
+        if not attn_even(cfg, m) and name in _ATTN_LEAVES:  # whole: each rank reads its heads
+            return (), True
         if name in ("wq", "wk", "wv"):
             return ((1,), False) if name == "wq" or kv_split(cfg, m) else ((), True)
         if name in ("bq", "bk", "bv", "wo"):

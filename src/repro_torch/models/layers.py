@@ -20,8 +20,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.parallel import (
     MeshContext,
+    attn_even,
     attn_split,
     gather_over_model,
+    head_runs,
     into_region,
     kv_heads_read,
     kv_split,
@@ -214,11 +216,28 @@ def _head_cols(w: torch.Tensor, lo: int, hi: int, hd: int) -> torch.Tensor:
     return w.narrow(-1, lo * hd, (hi - lo) * hd)
 
 
-def _take_heads(t: torch.Tensor, lo: int, hi: int, n_all: int) -> torch.Tensor:
-    """(B, S, n, hd) -> heads [lo, hi), where ``t`` holds all ``n_all``."""
-    if t.shape[2] != n_all or (lo, hi) == (0, n_all):
+def _kv_run(t: torch.Tensor, lo: int, hi: int, first: int, n_all: int) -> torch.Tensor:
+    """kv heads [lo, hi) of ``t`` (B, S, n, hd), which holds all ``n_all``
+    or exactly the heads from ``first`` on: a view, never a copy."""
+    first = 0 if t.shape[2] == n_all else first
+    if (lo - first, hi - first) == (0, t.shape[2]):
         return t
-    return t.narrow(2, lo, hi - lo).contiguous()
+    return t.narrow(2, lo - first, hi - lo)
+
+
+def _by_runs(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig,
+             h0: int, h1: int, k0: int) -> torch.Tensor:
+    """``core(q, k, v)`` for query heads [h0, h1), once for each of their
+    ``head_runs`` on views of q and of the kv heads it reads (``k``/``v``
+    hold every kv head or this rank's from ``k0`` on), the outputs joined on
+    the head axis."""
+    outs = []
+    for r0, r1 in head_runs(cfg, h0, h1):
+        c0, c1 = kv_heads_read(cfg, r0, r1)
+        q_run = q if (r0, r1) == (h0, h1) else q.narrow(2, r0 - h0, r1 - r0)
+        kv = [_kv_run(t, c0, c1, k0, cfg.n_kv_heads) for t in (k, v)]
+        outs.append(core(q_run, *kv))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
 def attention_block(
@@ -242,26 +261,32 @@ def attention_block(
     updated copy) and attention runs over the cache, which is returned.
 
     Under a ``ctx`` whose model axis splits the heads (``attn_split``) the
-    block is tensor-parallel: ``wq``/``bq`` hold this rank's H/m heads'
-    columns and ``wo`` their rows; ``wk/wv/bk/bv`` hold its kv heads'
-    columns (``kv_split``) or are whole, and the rank takes the columns of
-    the kv heads it reads (all of them where ``full_kv`` asks for every
-    head's K/V, as the prefill's cache does, or a decode cache holds every
-    head).  The core runs on the rank's heads, the ``wo`` product's f32
-    partial sums are all-reduced over the model group, then cast.  A decode
-    cache holds this rank's kv heads (written in place) or every kv head
-    (the new token's K/V of every head written; a split K/V gathered over
-    the model group first)."""
+    block is tensor-parallel on this rank's query heads [h0, h1)
+    (``MeshContext.heads``): ``wq``/``bq`` hold their columns and ``wo``
+    their rows under the even split (``attn_even``), else they are whole
+    and the rank takes its heads' columns and rows; ``wk/wv/bk/bv`` hold its kv
+    heads' columns (``kv_split``) or are whole, and the rank takes the
+    columns of the kv heads it reads (all of them where ``full_kv`` asks for
+    every head's K/V, as the prefill's cache does, or a decode cache holds
+    every head).  The core runs once for each of the heads' ``head_runs``,
+    the ``wo`` product's f32 partial sums are all-reduced over the model
+    group, then cast.  A decode cache holds this rank's kv heads (written in
+    place) or every kv head (the new token's K/V of every head written; a
+    split K/V gathered over the model group first)."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
     split = attn_split(cfg, model_size(ctx))
-    wk, wv = params["wk"], params["wv"]
-    bk, bv = (params["bk"], params["bv"]) if cfg.qkv_bias else (None, None)
+    wq, wo, wk, wv = params["wq"], params["wo"], params["wk"], params["wv"]
+    bq, bk, bv = (params["bq"], params["bk"], params["bv"]) if cfg.qkv_bias else (None, None, None)
     (h0, h1), (k0, k1) = (0, H), (0, KV)
     if split:
         x = into_region(x, ctx)
-        h0, h1 = ctx.part(H)
+        h0, h1 = ctx.heads(H)
+        if not attn_even(cfg, ctx.model_size):  # whole leaves: this rank's heads of them
+            wq, wo = _head_cols(wq, h0, h1, hd), wo.narrow(0, h0 * hd, (h1 - h0) * hd)
+            if cfg.qkv_bias:
+                bq = _head_cols(bq, h0, h1, hd)
         if kv_split(cfg, ctx.model_size):
             k0, k1 = ctx.part(KV)
         else:
@@ -271,11 +296,11 @@ def attention_block(
             wk, wv = _head_cols(wk, m0, m1, hd), _head_cols(wv, m0, m1, hd)
             if cfg.qkv_bias:
                 bk, bv = _head_cols(bk, m0, m1, hd), _head_cols(bv, m0, m1, hd)
-    q = _dot_f32(x, params["wq"])
+    q = _dot_f32(x, wq)
     k = _dot_f32(x, wk)
     v = _dot_f32(x, wv)
     if cfg.qkv_bias:
-        q = q + params["bq"]
+        q = q + bq
         k = k + bk
         v = v + bv
     q = q.to(dt).reshape(B, S, h1 - h0, hd)
@@ -286,16 +311,18 @@ def attention_block(
 
     if kv_cache is None:
         cache = (k, v)
-        k, v = _take_heads(k, k0, k1, KV), _take_heads(v, k0, k1, KV)
         mask = AttnMask(causal=cfg.causal, window=cfg.window)
         if cfg.use_kernels:
-            from repro_torch.kernels.ops import flash_attention  # lazy: no cycle
+            from repro_torch.kernels import ops  # lazy: no cycle
 
-            out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+            def core(q, k, v):
+                return ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
         elif S > cfg.attn_chunk:
-            out = chunked_attention(q, k, v, mask, chunk=cfg.attn_chunk)
+            def core(q, k, v):
+                return chunked_attention(q, k, v, mask, chunk=cfg.attn_chunk)
         else:
-            out = plain_attention(q, k, v, mask)
+            def core(q, k, v):
+                return plain_attention(q, k, v, mask)
     else:
         K, V = kv_cache
         assert cache_pos is not None
@@ -303,12 +330,13 @@ def attention_block(
             k, v = gather_over_model(k, ctx, 2), gather_over_model(v, ctx, 2)
         K[:, cache_pos : cache_pos + S] = k
         V[:, cache_pos : cache_pos + S] = v
-        cache = (K, V)
+        cache = k, v = K, V
         mask = AttnMask(causal=cfg.causal, window=cfg.window, kv_len=kv_len)
-        # query absolute position == its cache slot
-        out = plain_attention(q, _take_heads(K, k0, k1, KV), _take_heads(V, k0, k1, KV), mask,
-                              q_offset=cache_pos)
-    y = _dot_f32(out.reshape(B, S, (h1 - h0) * hd), params["wo"])
+
+        def core(q, k, v):  # query absolute position == its cache slot
+            return plain_attention(q, k, v, mask, q_offset=cache_pos)
+    out = _by_runs(core, q, k, v, cfg, h0, h1, k0)
+    y = _dot_f32(out.reshape(B, S, (h1 - h0) * hd), wo)
     if split:
         y = out_of_region(y, ctx)  # the f32 partial sums, then the cast
     return y.to(dt), cache

@@ -15,11 +15,18 @@ identity backward).  The row-parallel products all-reduce their f32
 partial sums and cast after, as GSPMD places the all-reduce on the f32
 result of the reference's ``preferred_element_type=f32`` einsum.
 
-A mixer or MLP splits only where the model axis divides its heads or d_ff
-(``attn_split``, ``kv_split``, ``mlp_split``, ``ssm_split``); otherwise it
-runs whole on every rank of the model group, on gathered weights.  The
-rules are shared by the layers and by ``distributed.sharding``'s parameter
-layouts, which keep a split leaf's ``model`` shard instead of gathering it.
+The MLP and the SSM split only where the model axis divides their d_ff or
+heads (``mlp_split``, ``ssm_split``); otherwise they run whole on every
+rank of the model group, on gathered weights.  Attention splits wherever
+every rank keeps a query head (``attn_split``): the rank at model
+coordinate r takes ⌈H/m⌉ or ⌊H/m⌋ contiguous heads, the first H mod m
+ranks one more (``head_range``), and runs its core once on each run of
+heads with one q-to-kv mapping (``head_runs``).  Where m divides H and a
+rank's heads make one run (``attn_even``) its ``wq`` columns and ``wo``
+rows are its model shard; otherwise they are gathered whole and the rank
+takes its heads' columns and rows.  The rules are shared by the layers and by
+``distributed.sharding``'s parameter layouts, which keep a split leaf's
+``model`` shard instead of gathering it.
 
 The vocabulary splits the same way (``vocab_split``), as the specs split
 ``embed`` (V, d) and ``head`` (d, V) on V: the rank at model coordinate r
@@ -36,7 +43,7 @@ logit columns at the end (``vocab_gather``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -72,6 +79,11 @@ class MeshContext:
         step = n // self.model_size
         return self.model_rank * step, (self.model_rank + 1) * step
 
+    def heads(self, n: int) -> Tuple[int, int]:
+        """This rank's contiguous [h0, h1) of ``n`` attention heads under the
+        uneven split (``head_range``); ``part`` where m divides ``n``."""
+        return head_range(n, self.model_size, self.model_rank)
+
 
 def model_size(ctx: Optional[MeshContext]) -> int:
     return 1 if ctx is None else ctx.model_size
@@ -80,12 +92,28 @@ def model_size(ctx: Optional[MeshContext]) -> int:
 # ---------------------------------------------------------------------------
 # Which layers split over model
 # ---------------------------------------------------------------------------
+def head_range(n: int, m: int, r: int) -> Tuple[int, int]:
+    """The [h0, h1) of ``n`` heads that rank ``r`` of ``m`` computes: ⌈n/m⌉
+    contiguous heads on the first n mod m ranks, ⌊n/m⌋ on the others
+    (deepseek-coder's 56 on 16: 4 on ranks 0-7, 3 on ranks 8-15)."""
+    step, extra = divmod(n, m)
+    lo = r * step + min(r, extra)
+    return lo, lo + step + (r < extra)
+
+
 def attn_split(cfg: ArchConfig, m: int) -> bool:
-    """Attention runs on H/m query heads a rank (``wq``/``bq`` columns and
-    ``wo`` rows keep their model shard), where m divides the heads and a
-    rank's heads read whole kv heads or share one (its H/m heads a multiple
-    or a divisor of the group size H/KV): its kv heads are then one
-    contiguous run, ``kv_heads_read``."""
+    """Attention runs on this rank's ``head_range`` of the query heads,
+    wherever every rank of the model axis keeps at least one (m ≤ H)."""
+    return 1 < m <= cfg.n_heads
+
+
+def attn_even(cfg: ArchConfig, m: int) -> bool:
+    """The even split: m divides the query heads and a rank's H/m heads read
+    whole kv groups or share one (H/m a multiple or a divisor of the group
+    size H/KV), so they make one run.  ``wq``/``bq`` columns and ``wo`` rows
+    then keep their model shard, which is exactly this rank's heads.
+    Otherwise (``attn_split`` but not even) they are gathered whole and the
+    rank takes its heads' columns and rows."""
     if m == 1 or cfg.n_heads % m:
         return False
     per_rank, group = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
@@ -96,14 +124,27 @@ def kv_split(cfg: ArchConfig, m: int) -> bool:
     """``wk/wv/bk/bv`` keep their model shard, which is then exactly the kv
     heads this rank's query heads read; otherwise they are gathered and the
     rank takes the columns of the kv heads it reads."""
-    return attn_split(cfg, m) and cfg.n_kv_heads % m == 0
+    return attn_even(cfg, m) and cfg.n_kv_heads % m == 0
 
 
 def kv_heads_read(cfg: ArchConfig, h0: int, h1: int) -> Tuple[int, int]:
     """The kv heads [lo, hi) that query heads [h0, h1) read (head h reads h
-    // (H / KV)), under ``attn_split``."""
+    // (H / KV)): one contiguous run for any contiguous [h0, h1)."""
     group = cfg.n_heads // cfg.n_kv_heads
     return h0 // group, (h1 - 1) // group + 1
+
+
+def head_runs(cfg: ArchConfig, h0: int, h1: int) -> List[Tuple[int, int]]:
+    """Query heads [h0, h1) cut into at most three runs, each with one
+    q-to-kv mapping, so the attention core runs once a run on views of q, K
+    and V: a leading part of a GQA group (it reads one kv head, G = its
+    length), the whole groups after it (the usual h // G), and a trailing
+    part of a group (one kv head).  Empty runs are left out, so heads that
+    fall inside one group, or that are whole groups, make one run."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    a = min(h1, -(-h0 // group) * group)  # the first group boundary at or past h0
+    b = max(a, h1 // group * group)  # the last one at or before h1
+    return [(lo, hi) for lo, hi in ((h0, a), (a, b), (b, h1)) if hi > lo]
 
 
 def mlp_split(cfg: ArchConfig, m: int) -> bool:

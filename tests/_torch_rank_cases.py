@@ -29,10 +29,15 @@ TABLE_ARCHS = [PHI, JAMBA]  # the parameter tables held on (2, 2)
 
 
 # reduced danube with grouped kv heads, named "<arch>@<H>x<KV>": on a model
-# axis of 2, 2 kv heads split with the query heads, 1 kv head is gathered
-# and each rank takes its columns (the gradient summed over model), and 3
-# query heads do not split, so attention runs whole on every rank
+# axis of 2, 2 kv heads split with the query heads (4x2); 1 kv head is
+# gathered and each rank takes its columns, the gradient summed over model
+# (4x1); 3 query heads split unevenly, 2 on rank 0 and 1 on rank 1, with
+# every attention leaf gathered whole and summed over model (3x1); and 6
+# heads over 3 kv heads split 3 a rank, each rank's 3 crossing a kv-group
+# boundary of 2, so its core runs on two runs of heads, 2 + 1 on rank 0 and
+# 1 + 2 on rank 1 (6x3; its leaves gathered as 3x1's)
 DANUBE_KV2, DANUBE_KV1, DANUBE_H3 = f"{DANUBE}@4x2", f"{DANUBE}@4x1", f"{DANUBE}@3x1"
+DANUBE_H6 = f"{DANUBE}@6x3"
 # reduced danube at a vocabulary the model axis of 2 does not divide, named
 # "<arch>@v<V>": embed and head stay whole on every rank (the reduced
 # configs' 512 split into 256 rows a rank)
@@ -141,6 +146,14 @@ def sharded_block_rank(rank: int, world: int, n_data: int, n_model: int):
     return out
 
 
+def device_rank(rank: int, world: int):
+    """The card this rank was put on (-1: none, the ranks run on the CPU)."""
+    import torch
+
+    on_card = torch.cuda.is_available() and torch.cuda.is_initialized()
+    return {"card": np.array(torch.cuda.current_device() if on_card else -1)}
+
+
 def _leaves(specs, shapes, prefix=""):
     for k, v in shapes.items():
         if isinstance(v, dict):
@@ -158,7 +171,7 @@ def _leaves(specs, shapes, prefix=""):
 # function.
 # ---------------------------------------------------------------------------
 SERVE_CASES = [(PHI, 2), (PHI, 1), (DANUBE, 2), (JAMBA, 2),  # (arch, global batch)
-               (DANUBE_KV2, 2), (DANUBE_KV1, 2), (DANUBE_H3, 2), (DANUBE_KV2, 1),
+               (DANUBE_KV2, 2), (DANUBE_KV1, 2), (DANUBE_H3, 2), (DANUBE_H6, 2), (DANUBE_KV2, 1),
                (DANUBE_V511, 2)]
 SERVE_S, SERVE_NEW, NO_DROP_CAPACITY = 16, 4, 4.0
 ENCODE_B, ENCODE_S = 2, 16
@@ -173,8 +186,10 @@ def serve_cfg(configs, arch: str):
 class LayerWidths:
     """While in use, records the widths the layers compute on: the query
     heads each attention core sees (the flash entry point, the chunked and
-    the plain attention), the heads of each SSD scan (the scan entry point
-    and the chunked scan), the hidden width of each dense MLP (its
+    the plain attention), and the heads of each core call of one attention
+    block in order, joined by "+" (``attn_runs``: "2+1" for a block whose
+    core ran on 2 heads, then 1), the heads of each SSD scan (the scan entry
+    point and the chunked scan), the hidden width of each dense MLP (its
     ``w_down`` rows), the columns of each head product (``head_logits``: the
     serving logits and each CE chunk) and the rows of each embedding table
     looked up (``embed_tokens``)."""
@@ -183,9 +198,9 @@ class LayerWidths:
         from repro_torch.kernels import ops
         from repro_torch.models import layers, model, ssm
 
-        self.seen = {"attn_heads": set(), "ssd_heads": set(), "mlp_hidden": set(),
+        self.seen = {"attn_heads": set(), "attn_runs": set(), "ssd_heads": set(), "mlp_hidden": set(),
                      "head_cols": set(), "embed_rows": set()}
-        self._saved = []
+        self._saved, self._blocks = [], []
 
         def spy(mod, name, kind, width):
             orig = getattr(mod, name)
@@ -197,7 +212,21 @@ class LayerWidths:
             self._saved.append((mod, name, orig))
             setattr(mod, name, wrapped)
 
-        heads = lambda t, *a: t.shape[2]  # noqa: E731
+        def heads(t, *a):
+            if self._blocks:
+                self._blocks[-1].append(t.shape[2])
+            return t.shape[2]
+
+        def block(params, x, *a, **k):
+            self._blocks.append([])
+            try:
+                return orig_block(params, x, *a, **k)
+            finally:
+                self.seen["attn_runs"].add("+".join(map(str, self._blocks.pop())))
+
+        orig_block = model.attention_block
+        self._saved.append((model, "attention_block", orig_block))
+        model.attention_block = block
         for mod, name in ((ops, "flash_attention"), (layers, "plain_attention"), (layers, "chunked_attention")):
             spy(mod, name, "attn_heads", heads)
         for mod, name in ((ops, "ssd_scan"), (ssm, "ssd_chunked")):
@@ -213,7 +242,7 @@ class LayerWidths:
 
     def put(self, out: dict, key: str) -> None:
         for kind, widths in self.seen.items():
-            out[f"{key}|seen|{kind}"] = np.array(sorted(widths), dtype=np.int64)
+            out[f"{key}|seen|{kind}"] = np.array(sorted(widths), dtype=str if kind == "attn_runs" else np.int64)
 
 
 def no_redistribution() -> None:
@@ -289,7 +318,7 @@ def steps_rank(rank: int, world: int):
 
     no_redistribution()
     mesh, rules = _mesh_and_rules(2, 2)
-    out = {}
+    out = {"coord": np.array(mesh.get_coordinate())}
 
     def rows(t, B):
         """The global (B, ...) tensor of which ``t`` is this rank's rows."""
@@ -370,7 +399,7 @@ def steps_rank(rank: int, world: int):
 # takes the whole batch).  Weights from DecoderLM.from_config's seed.
 # ---------------------------------------------------------------------------
 MAMBA = "mamba2-130m"
-TRAIN_ARCHS = [DANUBE, PHI, MAMBA, DANUBE_KV1, DANUBE_V511]
+TRAIN_ARCHS = [DANUBE, PHI, MAMBA, DANUBE_KV1, DANUBE_H3, DANUBE_H6, DANUBE_V511]
 TRAIN_BATCHES = [4, 1]
 TRAIN_S, TRAIN_STEPS = 32, 2
 TRAIN_CLIP = 0.05  # under every case's gradient norm (the tests check), so the clip binds

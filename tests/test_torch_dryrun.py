@@ -245,10 +245,11 @@ def test_dryrun_smoke_cell(smoke_cells, arch, shape_name, mesh):
         assert r["collectives"]["reduce-scatter"]["count"] > 0
 
 
-def _single_process_flops_at(arch, shape_name, layers):
-    """``_single_process_flops`` of the smoke cell cut to ``layers`` layers."""
+def _single_process_flops_at(arch, shape_name, layers, **kw):
+    """``_single_process_flops`` of the smoke cell cut to ``layers`` layers
+    (and with the config fields ``kw``)."""
     cfg, shape = cell_config(arch, shape_name, smoke=True)
-    cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = dataclasses.replace(cfg, n_layers=layers, **kw)
     model = TM.DecoderLM.from_config(cfg, seed=0, device="cpu", trainable=True)
     step, _, _ = step_for_cell(cfg, shape)
     structs = batch_structs(cfg, shape, with_labels=True)
@@ -287,6 +288,32 @@ def test_tensor_parallel_rank_counts_its_share_of_the_layers():
     assert abs(replicated - want) > 0.1 * want, (replicated, want)
     whole_vocab = rest + stack / 2
     assert abs(whole_vocab - want) > 0.1 * want, (whole_vocab, want, rest)
+
+
+@pytest.mark.slow
+def test_uneven_head_split_rank_counts_its_heads():
+    """Reduced danube's train step on a fake (data 1, model 3) group, whose
+    model axis divides neither its 4 query heads, nor its d_ff of 128, nor
+    its 512-token vocabulary: rank 0 runs attention on its ⌈4/3⌉ = 2 heads
+    (and the 2 kv heads they read) and everything else whole, so its FLOPs
+    are the single process's with 2 query and 2 kv heads, exactly (within
+    1%).  A rank that ran attention on all 4 heads counts 24% more."""
+    arch, shape_name = "h2o-danube-3-4b", "train_4k"
+    cfg, _ = cell_config(arch, shape_name, smoke=True)
+    assert (cfg.n_heads, cfg.n_kv_heads) == (4, 4) and cfg.d_ff % 3 and cfg.vocab % 3
+    want = _single_process_flops_at(arch, shape_name, cfg.n_layers, n_heads=2, n_kv_heads=2)
+    whole = _single_process_flops_at(arch, shape_name, cfg.n_layers)
+    code = ("import json; from repro_torch.launch.dryrun import run_cell; "
+            f"print(json.dumps(run_cell({arch!r}, {shape_name!r}, False, verbose=False, "
+            "mesh_shape=(1, 3), smoke=True)))")
+    p = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    d = json.loads(p.stdout.strip().splitlines()[-1])
+    got = d["roofline"]["hlo_flops"] / d["roofline"]["chips"]
+    assert d["status"] == "ok" and d["roofline"]["chips"] == 3
+    assert abs(got - want) <= 0.01 * want, (got, want, whole)
+    assert abs(whole - want) > 0.1 * want, (whole, want)
 
 
 @pytest.mark.slow

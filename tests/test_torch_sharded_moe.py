@@ -20,7 +20,9 @@ Held:
     of 1 in f32, exactly equal to the port's local path;
   * its gradients (x, the router, each rank's experts) against the
     reference's ``jax.grad`` at 2e-3, each rank's partial gradients summed
-    over the data axis as a data-parallel step would.
+    over the data axis as a data-parallel step would;
+  * ``run_ranks`` itself puts its ranks on the card unless the caller
+    passes ``device="cpu"`` (without a card, the default raises).
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_sharded_moe.py
 """
@@ -67,7 +69,7 @@ def reference(tmp_path_factory):
 @pytest.fixture(scope="module")
 def ranks():
     """Each mesh shape's ranks' results, by mesh shape."""
-    return {shape: run_ranks(C.sharded_block_rank, shape[0] * shape[1], args=shape,
+    return {shape: run_ranks(C.sharded_block_rank, shape[0] * shape[1], args=shape, device="cpu",
                              env={"JAX_PLATFORMS": "cpu"})
             for shape in C.BLOCK_MESHES}
 
@@ -184,3 +186,16 @@ def test_n_experts_must_divide_the_model_axis():
     tp = {k: torch.from_numpy(v) for k, v in params.items()}
     with pytest.raises(ValueError, match="not divisible by model axis 3"):
         TMoE.moe_block(tp, torch.from_numpy(x), cfg, ctx)
+
+
+def test_run_ranks_puts_ranks_on_the_card_unless_asked_for_the_cpu():
+    """The launcher's default is the card, as every entry point of the port:
+    rank r on card r % device_count, and without a card a clear error; the
+    CPU only where the caller passes ``device="cpu"``."""
+    assert [int(r["card"]) for r in run_ranks(C.device_rank, 2, device="cpu")] == [-1, -1]
+    if torch.cuda.is_available():
+        n = torch.cuda.device_count()
+        assert [int(r["card"]) for r in run_ranks(C.device_rank, 2)] == [0, 1 % n]
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            run_ranks(C.device_rank, 2)

@@ -11,9 +11,11 @@ runs every case (``_torch_rank_cases.train_rank``); this process never joins
 a process group.
 
 Held, for reduced danube, phi3.5-moe (at a capacity that drops no token),
-mamba2 (tied embeddings, on V/2 rows a rank), danube with one kv head and
-danube at a vocabulary of 511 (``embed`` and ``head`` whole on every rank)
-in f32, at a global batch of 4 (split over data) and of 1 (which
+mamba2 (tied embeddings, on V/2 rows a rank), danube with one kv head,
+danube with 3 query heads (split 2 and 1 over model 2) and with 6 over 3
+kv heads (each rank's 3 on two runs), whose attention leaves are gathered
+whole and their gradients summed over model, and danube at a vocabulary
+of 511 (``embed`` and ``head`` whole on every rank) in f32, at a global batch of 4 (split over data) and of 1 (which
 divides no data axis), at 2e-3: the loss and every updated parameter after
 one and after two steps; one step with a binding clip and one with 2
 microbatches against the single process; one step with labels masked
@@ -122,7 +124,7 @@ def ckpt_dirs(tmp_path_factory, singles):
 
 @pytest.fixture(scope="module")
 def ranks(ckpt_dirs):
-    return run_ranks(C.train_rank, 4, args=tuple(str(d) for d in ckpt_dirs), timeout_s=300,
+    return run_ranks(C.train_rank, 4, args=tuple(str(d) for d in ckpt_dirs), device="cpu", timeout_s=300,
                      env={"JAX_PLATFORMS": "cpu"})
 
 
@@ -306,12 +308,18 @@ def test_gathered_gradients_equal_across_model_group(ranks, arch, B):
     gathers whole (the rule slices it over ``model``, never sums it).  The
     leaves gathered whole are exactly those no layer splits over ``model``:
     ``embed`` and ``head`` among them only where the vocabulary does not
-    split (reduced danube at 511)."""
+    split (reduced danube at 511), and no attention leaf where the model
+    axis splits the heads unevenly or across kv groups (3 and 6 query
+    heads: every one of them is summed over ``model``)."""
     prefix = f"{C.train_key(arch, B)}|gathered_grad|"
     names = sorted(k[len(prefix):] for k in ranks[0] if k.startswith(prefix))
-    whole = sorted(n for n, lay in TS._leaf_layouts(_cfg(arch), _stand_in_rules()).items()
-                   if not lay.keep and not lay.summed_over)
+    layouts = TS._leaf_layouts(_cfg(arch), _stand_in_rules())
+    whole = sorted(n for n, lay in layouts.items() if not lay.keep and not lay.summed_over)
     assert "final_norm" in names and names == whole
+    attn = [n for n in layouts if n.split(".")[-1] in ("wq", "wk", "wv", "wo")]
+    assert attn or _cfg(arch).n_heads == 0
+    if _cfg(arch).n_heads in (3, 6):
+        assert all(layouts[n].summed_over == ("model",) and not layouts[n].keep for n in attn)
     assert ("head" in names or "embed" in names) == (_cfg(arch).vocab % SIZES["model"] != 0)
     groups = {}
     for r in ranks:

@@ -13,7 +13,8 @@ Every step runs tensor-parallel on model (``models/parallel.py``), with
 DTensor's ``redistribute`` made to raise in the ranks.  Held: greedy tokens
 of reduced phi3.5-moe (batch 2, and batch 1, which divides no data axis),
 danube, jamba, danube with grouped kv heads (4 over 2, at batch 2 and 1;
-4 over 1, gathered; 3 over 1, which do not split) and danube at a
+4 over 1, gathered; 3 over 1, split unevenly, 2 heads and 1; 6 over 3,
+each rank's 3 heads on two runs across a kv-group boundary) and danube at a
 vocabulary of 511, which does not split over model 2, through
 ``make_prefill_step`` and ``make_decode_step`` with rules, exactly equal to
 the single-process run
@@ -23,8 +24,9 @@ hubert's ``make_encoder_step`` logits at 2e-3; phi-3-vision's prefill
 logits on a patch prompt at 2e-3; and ``make_train_step`` with
 the rules running, its loss the single process's at 2e-3
 (tests/test_torch_sharded_train.py holds the sharded step in full); and
-the widths each rank's layers compute on (H/2 query heads, H_ssm/2 SSD
-heads, d_ff/2, V/2 head columns and embedding rows).  The MoE
+the widths each rank's layers compute on (its share of the query heads,
+⌈H/2⌉ on rank 0 and ⌊H/2⌋ on rank 1, in the runs its core is called on;
+H_ssm/2 SSD heads, d_ff/2, V/2 head columns and embedding rows).  The MoE
 configs run at a capacity that drops no token
 (``_torch_rank_cases.NO_DROP_CAPACITY``): a data shard's capacity is that of
 its own tokens, the single process's that of the global batch.
@@ -59,7 +61,7 @@ CASE_IDS = [f"{a}-B{b}" for a, b in C.SERVE_CASES]
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_ranks(C.steps_rank, 4, env={"JAX_PLATFORMS": "cpu"})
+    return run_ranks(C.steps_rank, 4, device="cpu", env={"JAX_PLATFORMS": "cpu"})
 
 
 def _single(arch, B):
@@ -110,15 +112,35 @@ def test_patch_prompt_logits_match_single_process(ranks):
         np.testing.assert_allclose(r[f"{C.VLM}|logits"], want.numpy(), atol=TOL, rtol=TOL)
 
 
-def _want_widths(cfg, m=2):
-    """The widths a rank's layers compute on, on a model axis of ``m``: H/m
-    query heads, H_ssm/m SSD heads, d_ff/m, and V/m head columns and
-    embedding rows where the axis divides them, all of them where it does
-    not."""
+def _runs(cfg, rank, m):
+    """The heads of each core call of one attention block on model rank
+    ``rank`` of ``m``: the rank's contiguous heads (the first H mod m ranks
+    one more) cut at every kv-group boundary, whole groups joined."""
+    H, G = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    sizes = [H // m + (r < H % m) for r in range(m)]
+    mine = range(sum(sizes[:rank]), sum(sizes[:rank + 1]))
+    runs = []  # [heads, whether whole groups]
+    for g in sorted({h // G for h in mine}):
+        n = sum(1 for h in mine if h // G == g)
+        if runs and runs[-1][1] and n == G:
+            runs[-1][0] += n
+        else:
+            runs.append([n, n == G])
+    return [n for n, _ in runs]
+
+
+def _want_widths(cfg, rank, m=2):
+    """The widths model rank ``rank``'s layers compute on, on a model axis of
+    ``m``: its runs of query heads (``_runs``), H_ssm/m SSD heads, d_ff/m,
+    and V/m head columns and embedding rows where the axis divides them, all
+    of them where it does not."""
     def part(n):
         return n // m if n % m == 0 else n
 
-    return {"attn_heads": [part(cfg.n_heads)] if "attn" in cfg.period else [],
+    attn = "attn" in cfg.period
+    runs = _runs(cfg, rank, m) if attn else []
+    return {"attn_heads": sorted(set(runs)),
+            "attn_runs": ["+".join(map(str, runs))] if attn else [],
             "ssd_heads": [part(cfg.ssm_heads)] if "ssm" in cfg.period else [],
             "mlp_hidden": [part(cfg.d_ff)] if "mlp" in cfg.mlp_pattern else [],
             "head_cols": [part(cfg.vocab)],
@@ -132,15 +154,19 @@ WIDTH_CASES = [(f"{a}|{b}", C.serve_cfg(tconfigs, a)) for a, b in C.SERVE_CASES]
 
 @pytest.mark.parametrize("key,cfg", WIDTH_CASES, ids=[k.replace("|", "-B") for k, _ in WIDTH_CASES])
 def test_layers_compute_on_this_ranks_share(ranks, key, cfg):
-    """Tensor-parallel on model 2: each rank's attention core sees H/2 query
-    heads (3 heads do not split: all 3), its SSD scan H_ssm/2 heads, its
-    dense MLP a hidden width of d_ff/2, and its head product and embedding
-    lookup V/2 of the vocabulary (511 does not split: all of it), in
-    prefill, decode, encode and training."""
-    want = _want_widths(cfg)
-    assert cfg.n_heads != 3 or want["attn_heads"] == [3]
-    assert cfg.vocab != 511 or want["head_cols"] == [511]
+    """Tensor-parallel on model 2: each rank's attention core runs on its
+    own query heads, H/2 a rank where 2 divides them and 3 heads unevenly
+    (2 on rank 0, 1 on rank 1), once for each run of heads with one
+    q-to-kv mapping (6 heads over 3 kv heads: 2 + 1 on rank 0, 1 + 2 on
+    rank 1); its SSD scan H_ssm/2 heads, its dense MLP a hidden width of
+    d_ff/2, and its head product and embedding lookup V/2 of the
+    vocabulary (511 does not split: all of it), in prefill, decode, encode
+    and training."""
+    assert cfg.n_heads != 3 or [_want_widths(cfg, r)["attn_runs"] for r in (0, 1)] == [["2"], ["1"]]
+    assert cfg.n_heads != 6 or [_want_widths(cfg, r)["attn_runs"] for r in (0, 1)] == [["2+1"], ["1+2"]]
+    assert cfg.vocab != 511 or _want_widths(cfg, 0)["head_cols"] == [511]
     for r in ranks:
+        want = _want_widths(cfg, int(r["coord"][1]))
         for kind, widths in want.items():
             assert r[f"{key}|seen|{kind}"].tolist() == widths, kind
 
