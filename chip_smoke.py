@@ -9,10 +9,12 @@ its check does not hold:
 1. the card's name and power limit; TF32 switched off for f32 products;
 2. build: every CUDA source of the port compiled by nvcc for sm_90a, all
    started together; ptxas's registers, shared memory and spills of each
-   kernel (a spill in a tensor-core kernel fails the run), and the count of
-   tensor-core instructions (HMMA, HGMMA) in the SASS of each tensor-core
-   kernel's library, from ``cuobjdump -sass`` (none found, or no cuobjdump,
-   fails the run);
+   kernel (a spill in a tensor-core kernel fails the run, and so does
+   ptxas's C7515, wgmma serialised), and the count of tensor-core
+   instructions (HMMA, HGMMA) and TMA loads (UTMALDG) in the SASS of each
+   tensor-core kernel's library, from ``cuobjdump -sass`` (none found, or no
+   cuobjdump, fails the run; the bf16 flash kernel must hold both HGMMA and
+   UTMALDG);
 3. kernels against plain: flash attention and the SSD scan, each through its
    dtype rule (bf16 to the tensor-core kernel, f32 to the CUDA-core kernel),
    against its plain PyTorch version on the card, at its serving path's
@@ -22,8 +24,9 @@ its check does not hold:
    one computes the same function (SDPA for attention — with ``is_causal``
    and no mask unless the window bites, ``library_path`` says which — the
    yardstick, never used by the port; none for the SSD scan) and the card's
-   bound; the SSD sweep also runs past the zoo's widths, as the Pallas
-   kernel takes them: P 128 at N 128 (bf16, the tensor cores on two P
+   bound, each flash row with ``bound_share`` (bound ms / kernel ms) and
+   ``over_library`` (kernel ms / SDPA ms); the SSD sweep also runs past the
+   zoo's widths, as the Pallas kernel takes them: P 128 at N 128 (bf16, the tensor cores on two P
    tiles), P 128 at N 256 and P 80 at N 136 (bf16 and f32, the CUDA-core
    kernel on tiles of 64 rows, f32 held against the plain version in
    float64), each with its bound at the tile and at the chunk;
@@ -352,7 +355,7 @@ KERNEL_SHAPES = [
     ("padded S=200", 1, 200, 4, 4, 32, torch.float32, True, None),
     ("non-causal", 2, 128, 4, 4, 64, torch.float32, False, None),
     # phi-3-vision's prefill (MHA, hd 96) and hubert's encode (MHA, hd 80,
-    # no causal mask): hd padded to 128 in the tensor-core kernel
+    # no causal mask): multiplied at n 96 and n 80 in the tensor-core kernel
     ("phi-3-vision prefill (main path)", VLM.serve_b, VLM.serve_l, 32, 32, 96, torch.bfloat16, True,
      None),
     ("hubert encode (main path)", ENCODER.serve_b, ENCODER.serve_l, 16, 16, 80, torch.bfloat16,
@@ -429,7 +432,8 @@ def kernel_checks(fa) -> list:
             max_abs_err=err, tol=tol, tol_share=share, previous_tol_share=prev_share,
             ms=kernel_ms, previous_ms=previous_ms, plain_ms=plain_ms, library_ms=library_ms,
             library_path=library_path, library_mask_ms=masked_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+            over_library=kernel_ms / library_ms,
         )
         print("kernel " + json.dumps(row), flush=True)
         rows.append(row)
@@ -727,9 +731,11 @@ def profile_once(fn, arch: str, label: str, top_n: int = 6) -> dict:
     # cuBLAS/CUTLASS matrix products by their kernel names (nvjet: cuBLAS's
     # Hopper GEMMs; sm80_xmma_gemm / simt_sgemm: its f32 ones)
     gemm_ms = sum(ms for name, ms in by_name.items() if "gemm" in name or "nvjet" in name)
+    # the port's hand kernels, in or out of the top (flash_tc_kernel, ssd_tc_kernel, ...)
+    hand_ms = {name: ms for name, ms in by_name.items() if "flash" in name or "ssd" in name}
     row = dict(arch=arch, step=label, wall_ms=wall_ms, device_ms=device_ms,
                device_busy_share=device_ms / wall_ms, kernels=len(names), gemm_ms=gemm_ms,
-               top_ms=dict(top))
+               top_ms=dict(top), hand_ms=hand_ms)
     print("profile " + json.dumps(row), flush=True)
     return row
 
@@ -2061,10 +2067,15 @@ def kernel_line(name, variant, source, replaces, launches: dict, row) -> dict:
         max_abs_err=row["max_abs_err"], ms=row["ms"], previous_ms=row["previous_ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
         library_ms=row["library_ms"], library_path=row.get("library_path"),
+        bound_share=row["bound_ms"] / row["ms"],
+        over_library=row["ms"] / row["library_ms"] if row["library_ms"] else None,
     )
 
 
 TC_SOURCES = ("flash_attention_tc", "ssd_scan_tc")  # the tensor-core kernels' sources
+# SASS each tensor-core library must hold: any tensor-core instruction; for
+# the bf16 flash kernel, Hopper's wgmma and TMA loads both
+SASS_REQUIRED = {"flash_attention_tc": ("HGMMA", "UTMALDG")}
 
 
 def cuobjdump() -> str:
@@ -2085,26 +2096,32 @@ def cuobjdump() -> str:
 
 def build_phase(_build) -> None:
     """Build every source; print ptxas's report of each kernel; fail on a
-    spill in a tensor-core kernel or on a tensor-core library whose SASS has
-    no tensor-core instruction."""
+    spill or serialised wgmma (C7515) in a tensor-core kernel, on a
+    tensor-core library whose SASS has no tensor-core instruction, or on a
+    bf16 flash library without HGMMA and UTMALDG."""
     t0 = time.monotonic()
     logs = _build.build()
     print(f"build: {_build.sources()} in {time.monotonic() - t0:.2f} s "
           f"({len(logs)} compiled now)", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "spill" in line or "smem" in line or "C75" in line:
                 print(f"  {name}: {line.strip()}")
                 if name in TC_SOURCES and "spill" in line:
                     spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
                     check(not any(spills), f"ptxas reports spills in {name}: {line.strip()}")
+                check(name not in TC_SOURCES or "C7515" not in line,
+                      f"ptxas serialises wgmma in {name}: {line.strip()}")
     tool = cuobjdump()
     for name in TC_SOURCES:
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
                               text=True, timeout=120, check=True).stdout
-        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA", "UTMALDG")}
         print(f"sass {name}: " + json.dumps(counts), flush=True)
-        check(sum(counts.values()) > 0, f"no tensor-core instruction in the SASS of {name}")
+        check(counts["HMMA"] + counts["HGMMA"] > 0,
+              f"no tensor-core instruction in the SASS of {name}")
+        for op in SASS_REQUIRED.get(name, ()):
+            check(counts[op] > 0, f"no {op} in the SASS of {name}")
 
 
 def main() -> None:

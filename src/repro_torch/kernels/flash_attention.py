@@ -14,9 +14,12 @@ visible (q, k) pair and moves only q, k, v and o once, so tensor-core FLOPs
 bound it.  The two variants:
 
 - ``tensor_core`` (``csrc/flash_attention_tc.cu``, bf16 only): both products
-  on the tensor cores as ``wgmma`` (one warpgroup a 64-row q tile, bf16 in,
-  f32 accumulate), K/V tiles streamed through a two-stage cp.async ring, the
-  online softmax in registers on the accumulator fragments.  Its one extra
+  on the tensor cores as ``wgmma`` (bf16 in, f32 accumulate) in Hopper's
+  warp-specialised shape: a producer warpgroup loads Q (128 rows) and K/V
+  tiles of 128 keys by TMA through mbarrier rings, two consumer warpgroups
+  of 64 rows each overlap one tile's softmax with the next tile's products
+  and take turns on the tensor cores; hd is multiplied at its own width
+  (32, 64, 80, 96 or 128); persistent blocks, one an SM.  Its one extra
   rounding: p is rounded to bf16 before the P·V product (l sums the f32 p).
 - ``cuda_core`` (``csrc/flash_attention.cu``, f32 and bf16): every product an
   f32 FMA on the CUDA cores, scores and p in f32.  TF32 keeps about 3
@@ -24,7 +27,8 @@ bound it.  The two variants:
 
 **The dtype rule** (``variant``): bf16 input whose head_dim is a multiple of
 8, whose batch/sequence/head strides are multiples of 8 elements and whose
-bases are 16-byte aligned (what 16-byte cp.async needs) goes to
+bases are 16-byte aligned (what a TMA tensor map needs: 16-byte strides and
+base) goes to
 ``tensor_core``; every other input — f32, or bf16 that fails the alignment —
 goes to ``cuda_core``.  Each variant launches or raises; neither falls back
 to the other.
@@ -82,9 +86,9 @@ def _tc_kernel():
 def variant(
     dtype: torch.dtype, head_dim: int, strides: Sequence[int], data_ptrs: Sequence[int]
 ) -> str:
-    """The dtype rule: ``"tensor_core"`` for bf16 that 16-byte cp.async can
-    read (head_dim a multiple of 8, every batch/sequence/head stride of q, k
-    and v a multiple of 8 elements, every base 16-byte aligned), else
+    """The dtype rule: ``"tensor_core"`` for bf16 that TMA can read
+    (head_dim a multiple of 8, every batch/sequence/head stride of q, k and
+    v a multiple of 8 elements, every base 16-byte aligned), else
     ``"cuda_core"``.  Pure Python: it reads no tensor."""
     aligned = (
         head_dim % 8 == 0
@@ -178,7 +182,9 @@ def flash_attention_tc(
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """The tensor-core kernel (bf16, cp.async-aligned input only)."""
+    """The tensor-core kernel (bf16, TMA-aligned input only).  Raises on
+    input it does not take and on a non-zero code from its C entry (a refused
+    launch or tensor map); it never hands the call to another variant."""
     _check(q, k, v, window)
     if _variant_of(q, k, v) != TENSOR_CORE:
         raise ValueError(

@@ -7,7 +7,7 @@ The emulations below repeat in numpy the roundings each kernel makes, so the
 design is checked here before the card runs it:
 
 - flash attention (``csrc/flash_attention_tc.cu``): q, k and v in bf16, f32
-  scores and online softmax over 64-key tiles, p rounded to bf16 before the
+  scores and online softmax over 128-key tiles, p rounded to bf16 before the
   P·V product (l sums the f32 p), output rounded to bf16;
 - the SSD scan (``csrc/ssd_scan_tc.cu``): x, B and C in bf16, and the f32
   intermediates M, S and w·x each split into bf16 hi + lo before their
@@ -31,7 +31,7 @@ pytestmark = pytest.mark.slow  # XLA interpret-mode kernels, like tests/test_ker
 
 BF16_TOL = 2e-2  # tests/test_kernels.py's bf16 tolerance, attention and SSD alike
 MAX_SHARE = 0.5  # the worst share of that allowance the design may use
-BK = 64  # the flash kernel's key tile
+BK = 128  # the flash kernel's key tile (csrc/flash_attention_tc.cu: BN)
 
 
 @pytest.fixture(scope="module")
@@ -77,8 +77,14 @@ def share(got, want, tol=BF16_TOL):
 # ---------------------------------------------------------------------------
 def flash_tc_emulation(q, k, v, causal, window):
     """The tensor-core kernel's arithmetic: f32 scores of bf16 q and k, scaled
-    in the log2 domain, online softmax over 64-key tiles, p in bf16 for P·V,
-    output in bf16.  q (B, Sq, H, hd), k/v (B, Sk, KV, hd), bf16 values."""
+    in the log2 domain, online softmax over 128-key tiles, p in bf16 for P·V,
+    output in bf16.  q (B, Sq, H, hd), k/v (B, Sk, KV, hd), bf16 values.
+
+    The kernel's 128-row q tile leaves each row's sums in this order: its
+    key tiles start at a multiple of BK (a window's first tile is rounded
+    down to one), and the tiles it skips, past the causal diagonal or older
+    than the window, are wholly masked, which change neither m, l nor acc
+    here."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     scale = np.float32(hd ** -0.5 * np.log2(np.e))
@@ -117,6 +123,9 @@ def flash_tc_emulation(q, k, v, causal, window):
         (1, 200, 8, 2, 120, True, None),   # ragged S
         (2, 256, 8, 2, 120, True, None),   # plain causal, several tiles
         (1, 128, 4, 4, 64, False, None),   # non-causal
+        (1, 256, 4, 4, 80, False, None),   # hubert's head_dim, no mask
+        (1, 256, 8, 8, 96, True, None),    # phi-3-vision's head_dim
+        (1, 384, 4, 2, 64, True, 200),     # a window edge inside a 128-key tile
     ],
 )
 def test_flash_bf16_p_rounding_holds_against_pallas(jx, B, S, H, KV, hd, causal, window):
@@ -314,7 +323,18 @@ FLASH_TC_CASES = [c[:5] + c[6:] for c in CUDA_CASES if c[5] == "bfloat16"] + [
     (1, 384, 6, 1, 16, True, None),     # MQA, hd 16
     (2, 96, 4, 2, 64, True, None),      # small S
     (2, 130, 4, 4, 128, False, None),   # non-causal, hd 128, ragged
-    (1, 77, 4, 2, 40, True, 10),        # hd 40 padded to 64, window inside a tile
+    (1, 77, 4, 2, 40, True, 10),        # hd 40 at the 64 width, window inside a tile
+    (2, 300, 8, 2, 128, True, None),    # S not a multiple of the 128-row / 128-key tiles
+    (1, 200, 4, 4, 64, False, None),    # non-causal, ragged Sk
+    (2, 1024, 16, 16, 80, False, None),  # hubert's hd 80: P V at n 80
+    (2, 600, 8, 8, 96, True, None),     # phi-3-vision's hd 96: P V at n 96
+    (1, 512, 7, 7, 64, True, None),     # G 1
+    (1, 256, 8, 2, 120, True, None),    # G 4
+    (1, 333, 14, 2, 128, True, None),   # G 7: deepseek's kv groups
+    (1, 256, 4, 2, 64, True, 1),        # window 1: each row sees its own key only
+    (1, 700, 4, 2, 120, True, 200),     # a window edge inside a 128-key tile
+    (1, 128, 2, 1, 128, True, None),    # a persistent grid of 2 tiles, fewer than the SMs
+    (1, 64, 3, 1, 32, False, None),     # hd 32 width, one q tile half empty
 ]
 
 
@@ -340,6 +360,43 @@ def test_cuda_tc_kernel_reads_strided_inputs(cuda):
     got = tops.flash_attention(q, k, v, causal=True, window=64)
     assert FA.flash_attention_tc.launches == before + 1
     _close(got, FA.flash_attention_plain(q, k, v, causal=True, window=64))
+
+
+def test_cuda_tc_kernel_reads_a_run_of_heads(cuda):
+    """A run of a rank's heads (``models/parallel.py::head_runs``): q heads
+    14..18 of a rank's 19 reading kv head 2 of its 3, views at a head offset
+    into the rank's tensors, as deepseek-coder's split over three ranks
+    hands them to the kernel."""
+    B, S, hd = 2, 300, 128
+    q_all, k_all, v_all = _qkv(34, B, S, 19, 3, hd, cuda)
+    q, k, v = q_all[:, :, 14:19], k_all[:, :, 2:3], v_all[:, :, 2:3]
+    assert q.data_ptr() != q_all.data_ptr() and not q.is_contiguous()
+    before = FA.flash_attention_tc.launches
+    got = tops.flash_attention(q, k, v, causal=True)
+    assert FA.flash_attention_tc.launches == before + 1
+    _close(got, FA.flash_attention_plain(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize(
+    "Sq,Sk,causal,window",
+    [
+        (100, 300, False, None),
+        (300, 100, True, None),
+        (1, 257, False, None),
+        (600, 40, False, 16),  # q tiles from row 256 on see no key: they store zeros
+    ],
+)
+def test_cuda_tc_kernel_takes_sq_other_than_sk(cuda, Sq, Sk, causal, window):
+    g = torch.Generator().manual_seed(35)
+    q = torch.randn(2, Sq, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(2, Sk, 2, 64, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    before = FA.flash_attention_tc.launches
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    assert FA.flash_attention_tc.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    _close(got, want)
+    if window is not None:
+        assert not got[:, Sk + window:].any()
 
 
 def test_cuda_unaligned_bf16_goes_to_the_cuda_core_kernel(cuda):
