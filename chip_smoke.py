@@ -13,8 +13,8 @@ its check does not hold:
    ptxas's C7515, wgmma serialised), and the count of tensor-core
    instructions (HMMA, HGMMA) and TMA loads (UTMALDG) in the SASS of each
    tensor-core kernel's library, from ``cuobjdump -sass`` (none found, or no
-   cuobjdump, fails the run; the bf16 flash kernel must hold both HGMMA and
-   UTMALDG);
+   cuobjdump, fails the run; the bf16 flash and SSD kernels must each hold
+   both HGMMA and UTMALDG);
 3. kernels against plain: flash attention and the SSD scan, each through its
    dtype rule (bf16 to the tensor-core kernel, f32 to the CUDA-core kernel),
    against its plain PyTorch version on the card, at its serving path's
@@ -24,10 +24,10 @@ its check does not hold:
    one computes the same function (SDPA for attention — with ``is_causal``
    and no mask unless the window bites, ``library_path`` says which — the
    yardstick, never used by the port; none for the SSD scan) and the card's
-   bound, each flash row with ``bound_share`` (bound ms / kernel ms) and
-   ``over_library`` (kernel ms / SDPA ms); the SSD sweep also runs past the
-   zoo's widths, as the Pallas kernel takes them: P 128 at N 128 (bf16, the tensor cores on two P
-   tiles), P 128 at N 256 and P 80 at N 136 (bf16 and f32, the CUDA-core
+   bound, each row with ``bound_share`` (bound ms / kernel ms), each flash
+   row with ``over_library`` (kernel ms / SDPA ms); the SSD sweep also runs
+   past the zoo's widths, as the Pallas kernel takes them: P 128 at N 128
+   (bf16, the tensor cores on two P tiles), P 128 at N 256 and P 80 at N 136 (bf16 and f32, the CUDA-core
    kernel on tiles of 64 rows, f32 held against the plain version in
    float64), each with its bound at the tile and at the chunk;
 4. serve h2o-danube-3-4b at full width from seeded random weights drawn on
@@ -550,6 +550,7 @@ def ssd_checks(ssd) -> list:
             plain_precision="float64" if exact else "float32", f32_plain_tol_share=f32_share,
             ms=kernel_ms, previous_ms=previous_ms, plain_ms=plain_ms, library_ms=None,
             library=NO_LIBRARY_SSD, bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_ms / kernel_ms,
             bound_ms_at_chunk=bound_chunk_ms, bound_at_chunk_by=bound_chunk_by,
         )
         print("ssd_kernel " + json.dumps(row), flush=True)
@@ -2074,8 +2075,8 @@ def kernel_line(name, variant, source, replaces, launches: dict, row) -> dict:
 
 TC_SOURCES = ("flash_attention_tc", "ssd_scan_tc")  # the tensor-core kernels' sources
 # SASS each tensor-core library must hold: any tensor-core instruction; for
-# the bf16 flash kernel, Hopper's wgmma and TMA loads both
-SASS_REQUIRED = {"flash_attention_tc": ("HGMMA", "UTMALDG")}
+# the bf16 flash and SSD kernels, Hopper's wgmma and TMA loads both
+SASS_REQUIRED = {"flash_attention_tc": ("HGMMA", "UTMALDG"), "ssd_scan_tc": ("HGMMA", "UTMALDG")}
 
 
 def cuobjdump() -> str:
@@ -2098,7 +2099,7 @@ def build_phase(_build) -> None:
     """Build every source; print ptxas's report of each kernel; fail on a
     spill or serialised wgmma (C7515) in a tensor-core kernel, on a
     tensor-core library whose SASS has no tensor-core instruction, or on a
-    bf16 flash library without HGMMA and UTMALDG."""
+    bf16 flash or SSD library without HGMMA and UTMALDG."""
     t0 = time.monotonic()
     logs = _build.build()
     print(f"build: {_build.sources()} in {time.monotonic() - t0:.2f} s "

@@ -393,54 +393,6 @@ __global__ void __launch_bounds__(THREADS, 1) flash_tc_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------
-// Host side: tensor maps, cuTensorMapEncodeTiled found at run time (no -lcuda).
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Error codes of the C entry past cudaError_t's range: a tensor map that
-// cuTensorMapEncodeTiled refused (code - MAP_ERROR is its CUresult), or no
-// entry point for it.
-constexpr int MAP_ERROR = 100000;
-constexpr int NO_ENCODE = 200000;
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050  // the versioned getter; the plain one is deprecated from 12.5
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (hd, heads, sequence, batch), innermost first, boxes of 64 columns x
-// `rows` with the 128-byte swizzle; a dim of size 1 is never stepped, so its
-// stride is set to 16 bytes whatever the view says.
-CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int hd, int heads,
-                  int S, int B, long long sh, long long ss, long long sb, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const long long st[3] = {sh, ss, sb};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) strides[i] = dims[i + 1] == 1 ? 16 : (cuuint64_t)st[i] * sizeof(bf16);
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int HDP>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            const CUtensorMap& to, int B, int Sq, int Sk, int H, int KV, int hd, int causal,
@@ -488,15 +440,16 @@ int flash_attention_tc_fwd(const void* q, const void* k, const void* v, void* o,
     aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || hd < 1 || hd > 128 || !aligned)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return NO_ENCODE;
+  const tc::EncodeTiled encode = tc::encode_fn();
+  if (encode == nullptr) return tc::NO_ENCODE;
   CUtensorMap tq, tk, tv, to;  // loads of 128 rows; the output's stores of a consumer's 64
-  CUresult r = make_map(encode, &tq, q, hd, H, Sq, B, q_sh, q_ss, q_sb, BM);
-  if (r == CUDA_SUCCESS) r = make_map(encode, &tk, k, hd, KV, Sk, B, k_sh, k_ss, k_sb, BN);
-  if (r == CUDA_SUCCESS) r = make_map(encode, &tv, v, hd, KV, Sk, B, v_sh, v_ss, v_sb, BN);
+  CUresult r = tc::make_map(encode, &tq, q, hd, H, Sq, B, q_sh, q_ss, q_sb, BM);
+  if (r == CUDA_SUCCESS) r = tc::make_map(encode, &tk, k, hd, KV, Sk, B, k_sh, k_ss, k_sb, BN);
+  if (r == CUDA_SUCCESS) r = tc::make_map(encode, &tv, v, hd, KV, Sk, B, v_sh, v_ss, v_sb, BN);
   if (r == CUDA_SUCCESS)
-    r = make_map(encode, &to, o, hd, H, Sq, B, hd, (long long)H * hd, (long long)Sq * H * hd, 64);
-  if (r != CUDA_SUCCESS) return MAP_ERROR + (int)r;
+    r = tc::make_map(encode, &to, o, hd, H, Sq, B, hd, (long long)H * hd,
+                     (long long)Sq * H * hd, 64);
+  if (r != CUDA_SUCCESS) return tc::MAP_ERROR + (int)r;
   if (window >= Sq) window = -1;  // it hides no key: drop the per-tile window test
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 32) return launch<32>(tq, tk, tv, to, B, Sq, Sk, H, KV, hd, causal, window, scale, s);
@@ -506,11 +459,6 @@ int flash_attention_tc_fwd(const void* q, const void* k, const void* v, void* o,
   return launch<128>(tq, tk, tv, to, B, Sq, Sk, H, KV, hd, causal, window, scale, s);
 }
 
-const char* flash_attention_tc_error_string(int code) {
-  if (code >= NO_ENCODE) return "cuTensorMapEncodeTiled: no entry point found";
-  if (code >= MAP_ERROR)
-    return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - 100000)";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_attention_tc_error_string(int code) { return tc::error_string(code); }
 
 }  // extern "C"

@@ -1,11 +1,11 @@
 // Tensor-core building blocks shared by the bf16 kernels (flash_attention_tc.cu,
-// ssd_scan_tc.cu): 16-byte cp.async with zero fill, ldmatrix, the warp-level
-// mma.sync.m16n8k16 bf16 product, Hopper's warpgroup product wgmma (m64nNk16,
-// bf16 in, f32 accumulate) with its shared-memory descriptors, and the pieces
-// of a warp-specialised Hopper pipeline: mbarriers, TMA tiled loads,
-// setmaxnreg and named barriers.
+// ssd_scan_tc.cu): ldmatrix, bf16 packing, Hopper's warpgroup product wgmma
+// (m64nNk16, bf16 in, f32 accumulate) with its shared-memory descriptors, the pieces
+// of a warp-specialised Hopper pipeline (mbarriers, TMA tiled loads,
+// setmaxnreg, named barriers), and on the host the 4-D tensor maps the TMA
+// loads read.
 //
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+// Fragment layouts of the m16n8k16 tile (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..)
 //   B (16 x 8, col):  b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
 //   C (16 x 8):       c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
@@ -15,7 +15,9 @@
 // (d[4 nt + e]), and an A operand in registers is one such A tile (k16).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tc {
@@ -24,41 +26,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (src is
-// then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix m.
-__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
+// Four 8x8 b16 matrices, transposed; lanes 8m..8m+7 give the row addresses
+// of matrix m.
 __device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-// d += a * b on the tensor cores.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -116,8 +89,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-// Shared memory written by ordinary stores or cp.async is made visible to
-// wgmma's reads (the async proxy).
+// Shared memory written by ordinary stores is made visible to wgmma's reads
+// and TMA stores (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -244,6 +217,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d = A B (scale_d = 0) or d += A B: m64n64k16, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A B: m64n32k16, A in registers, B MN-major ("transposed") in shared memory
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -339,6 +329,66 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// Host side: 4-D tensor maps for the TMA loads, cuTensorMapEncodeTiled found
+// at run time (no -lcuda).
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of the kernels' C entries past cudaError_t's range: a tensor
+// map that cuTensorMapEncodeTiled refused (code - MAP_ERROR is its
+// CUresult), or no entry point for it.
+constexpr int MAP_ERROR = 100000;
+constexpr int NO_ENCODE = 200000;
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050  // the versioned getter; the plain one is deprecated from 12.5
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor (cols, heads, sequence, batch), innermost first, with strides
+// in elements; boxes of 64 columns x `rows` with the 128-byte swizzle.  A dim
+// of size 1 is never stepped, so its stride is set to 16 bytes whatever the
+// view says.
+inline CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int cols,
+                         int heads, int S, int B, long long sh, long long ss, long long sb,
+                         int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const long long st[3] = {sh, ss, sb};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = dims[i + 1] == 1 ? 16 : (cuuint64_t)st[i] * sizeof(__nv_bfloat16);
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The message for a C entry's return code: cudaError_t or one of the above.
+inline const char* error_string(int code) {
+  if (code >= NO_ENCODE) return "cuTensorMapEncodeTiled: no entry point found";
+  if (code >= MAP_ERROR)
+    return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - 100000)";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace tc

@@ -15,19 +15,18 @@ N 128; jamba-1.5-large: chunk 256, P 64, N 128).  x, B and C are read
 through their strides (x is a slice of the fused xBC activation).
 
 **The domain.**  Any head width P: both kernels split the state's rows (y's
-and x's columns) into tiles of ``P_TILE`` = 64, one block each, since
-``y[:, p]`` and ``S[p, :]`` depend on their own p only and only ``C Bᵀ`` is
-shared (each P tile recomputes it); the grid holds ``H·⌈P/64⌉`` blocks a
+and x's columns) into tiles of ``P_TILE`` = 64, since ``y[:, p]`` and
+``S[p, :]`` depend on their own p only and only ``C Bᵀ`` is shared (each P
+tile recomputes it); the CUDA-core kernel's grid holds ``H·⌈P/64⌉`` blocks a
 batch row, so P is bounded only by ``2³¹ − 1`` of them.  State widths up to
 ``N_MAX`` = 256: the CUDA-core kernel keeps the (64, N) state and the B and
 C tiles in shared memory, which at N > 128 holds tiles of 64 rows at most
-(``ssd_tile``); the tensor-core kernel keeps the state in registers and
-takes N ≤ ``N_TC_MAX`` = 128 (``variant``).  N past 256 raises, naming the
-limit.
+(``ssd_tile``); the tensor-core kernel takes N ≤ ``N_TC_MAX`` = 128
+(``variant``).  N past 256 raises, naming the limit.
 
 **The tile is not the chunk.**  Both kernels keep tiles of at most 128 rows
 in shared memory (a 256-row tile of the f32 kernel would take 256 KB of the
-SM's 227, and would halve the bf16 kernel's two blocks an SM), and of at
+SM's 227, and would halve the bf16 kernel's two stages), and of at
 most 64 at N > 128 (B and C of 128 rows at N 256 would take 263 KB).  A
 chunk of ``chunk`` rows runs as ``chunk / tile`` sub-tiles of ``tile =
 ssd_tile(chunk, N)`` rows, the largest divisor of the chunk up to that
@@ -45,23 +44,33 @@ the 2e-4 tolerance.  A call stays one launch.
 
 What bounds it on the card: 2Q(QN + QP + 2NP) FLOPs per (b, h, tile of Q
 rows) against a few bytes per row, so tensor-core FLOPs at these widths.  The two
-variants, each one block per (b, h, P tile) looping over the chunks:
+variants:
 
-- ``tensor_core`` (``csrc/ssd_scan_tc.cu``, bf16 x/B/C only): the four
-  products on the tensor cores as ``mma.sync.m16n8k16`` with f32
-  accumulators, bf16 tiles in 89 KB of shared memory (two blocks an SM), the
-  state in registers.  Operand rounding: x, B and C go in as they are; the
-  f32 intermediates M, S and w·x are each split into bf16 hi + lo and
-  multiplied twice (about 2⁻¹⁶ relative; plain bf16 rounding of them missed
-  the 2e-2 tolerance by up to 8x, ``tests/test_torch_kernels_tc.py``).
-- ``cuda_core`` (``csrc/ssd_scan.cu``, f32 and bf16): every product an f32
-  FMA on the CUDA cores, the state in shared memory.  f32 stays here: TF32
-  would miss the f32 tolerance (2e-4).
+- ``tensor_core`` (``csrc/ssd_scan_tc.cu``, bf16 x/B/C only), built for
+  Hopper: the tiles run in parallel and only the state update is a chain.
+  A unit of work is one (b, h, P tile, tile of Q rows); persistent blocks
+  claim units from an atomic ticket in tile-major order.  A unit computes
+  its own state contribution ``U = (w∘x)ᵀ B`` first, waits for the state
+  its predecessor tile handed on through L2, hands on ``S_t = exp(a_end −
+  a_base)·S_{t−1} + U``, and then, off the chain, computes ``C Bᵀ``,
+  ``M x`` and ``exp(a_i − a_base)·C S_{t−1}ᵀ`` for y.  A producer warp
+  loads x, B and C by TMA into a ring of two stages and computes ``a_cum``;
+  two consumer warpgroups run the four products on ``wgmma``.  Operand
+  rounding: x, B and C go in as they are; the f32 intermediates M, S and
+  w·x are each split into bf16 hi + lo and multiplied twice (about 2⁻¹⁶
+  relative; plain bf16 rounding of them missed the 2e-2 tolerance by up to
+  8x, ``tests/test_torch_kernels_tc.py``).  The wrapper allocates the
+  hand-off's scratch each call: a ring of ``RING_FLOATS`` f32 a chain
+  (``torch.empty``) and the flags and ticket (``torch.zeros``).
+- ``cuda_core`` (``csrc/ssd_scan.cu``, f32 and bf16), one block per (b, h, P
+  tile) looping over the chunks: every product an f32 FMA on the CUDA
+  cores, the state in shared memory.  f32 stays here: TF32 would miss the
+  f32 tolerance (2e-4).
 
 **The dtype rule** (``variant``): bf16 x/B/C with P and N multiples of 8,
 N ≤ 128, batch/sequence/head strides of x, B and C multiples of 8 elements
-and 16-byte-aligned bases (what 16-byte cp.async needs) go to
-``tensor_core``; every other input — f32, bf16 that fails the alignment, or
+and 16-byte-aligned bases (what TMA needs: strides multiples of 16
+bytes) go to ``tensor_core``; every other input — f32, bf16 that fails the alignment, or
 bf16 at 128 < N ≤ 256 — goes to ``cuda_core``.  The rule reads shapes,
 strides and bases only: each variant launches or raises; neither falls back
 to the other.
@@ -83,6 +92,7 @@ from repro_torch.kernels import _build
 
 TILE_MAX, WIDE_TILE_MAX = 128, 64  # rows of a tile at N <= N_TC_MAX, and above
 P_TILE, N_TC_MAX, N_MAX = 64, 128, 256
+RING_FLOATS = 2 * 32 * 128  # the state handed on, a chain: two halves of 32 values a thread
 _GRID_X_MAX = 2**31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -106,7 +116,7 @@ def _tc_kernel():
     lib = _build.load("ssd_scan_tc")
     fn = lib.ssd_scan_tc_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     lib.ssd_scan_tc_error_string.argtypes = [ctypes.c_int]
@@ -126,15 +136,14 @@ def ssd_tile(chunk: int, N: int = N_TC_MAX) -> int:
 def variant(
     dtype: torch.dtype, P: int, N: int, strides: Sequence[int], data_ptrs: Sequence[int]
 ) -> str:
-    """The dtype rule: ``"tensor_core"`` for bf16 x/B/C that 16-byte cp.async
-    can read (P and N multiples of 8, every batch/sequence/head stride of x,
-    B and C a multiple of 8 elements, every base 16-byte aligned) at
-    N ≤ ``N_TC_MAX``, else ``"cuda_core"``.  A rule on the shape: bf16 at
-    128 < N ≤ 256 goes to the CUDA-core kernel, whose state lives in shared
-    memory, because the tensor-core kernel holds a warp's 16 rows of the
-    state in registers (16·N/8 floats a thread, with C's N/16 fragments),
-    which at N 256 would spill under its two blocks an SM.  Pure Python: it
-    reads no tensor."""
+    """The dtype rule: ``"tensor_core"`` for bf16 x/B/C that TMA can read (P
+    and N multiples of 8, every batch/sequence/head stride of x, B and C a
+    multiple of 8 elements, every base 16-byte aligned) at N ≤ ``N_TC_MAX``,
+    else ``"cuda_core"``.  A rule on the shape: bf16 at 128 < N ≤ 256 goes
+    to the CUDA-core kernel, whose state lives in shared memory, because the
+    tensor-core kernel loads 128 rows of B and C in two 64-column boxes a
+    stage (198 KB of shared memory with its two stages at N 128) and holds
+    C Bᵀ's rows in registers.  Pure Python: it reads no tensor."""
     aligned = (
         P % 8 == 0
         and N % 8 == 0
@@ -241,7 +250,7 @@ def _launch(fn, err, x, dt, A, Bm, Cm, D, extra, chunk):
 
 
 def ssd_scan_tc(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tensor-core kernel (bf16 x/B/C, cp.async-aligned input only)."""
+    """The tensor-core kernel (bf16 x/B/C, TMA-aligned input only)."""
     _check(x, dt, A, Bm, Cm, D, chunk)
     if _variant_of(x, Bm, Cm) != TENSOR_CORE:
         raise ValueError(
@@ -249,8 +258,11 @@ def ssd_scan_tc(x, dt, A, Bm, Cm, D, *, chunk: int) -> Tuple[torch.Tensor, torch
             f"and 16-byte-aligned bases; got {x.dtype}, P {x.shape[3]}, N {Bm.shape[3]}"
         )
     lib = _tc_kernel()
+    chains = x.shape[0] * x.shape[2] * -(-x.shape[3] // P_TILE)
+    ring = torch.empty(chains * RING_FLOATS, dtype=torch.float32, device=x.device)
+    flags = torch.zeros(2 * chains + 1, dtype=torch.int32, device=x.device)  # the ticket last
     out = _launch(lib.ssd_scan_tc_fwd, lib.ssd_scan_tc_error_string,
-                  x, dt, A, Bm, Cm, D, (), chunk)
+                  x, dt, A, Bm, Cm, D, (ring.data_ptr(), flags.data_ptr()), chunk)
     ssd_scan_tc.launches += 1
     return out
 

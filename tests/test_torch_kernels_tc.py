@@ -11,7 +11,9 @@ design is checked here before the card runs it:
   P·V product (l sums the f32 p), output rounded to bf16;
 - the SSD scan (``csrc/ssd_scan_tc.cu``): x, B and C in bf16, and the f32
   intermediates M, S and w·x each split into bf16 hi + lo before their
-  products, output rounded to bf16.
+  products, output rounded to bf16; ``chained`` repeats the order in which
+  the Hopper kernel's tiles combine (each tile's own state contribution from
+  zero, the state handed on, y = M x + e·C Sᵀ + D x).
 
 On a card: ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_tc.py``.
 """
@@ -144,12 +146,19 @@ def test_flash_bf16_p_rounding_holds_against_pallas(jx, B, S, H, KV, hd, causal,
 # ---------------------------------------------------------------------------
 # SSD scan
 # ---------------------------------------------------------------------------
-def ssd_tc_emulation(x, dt, A, Bm, Cm, D, chunk, split=True, tile=None):
+def ssd_tc_emulation(x, dt, A, Bm, Cm, D, chunk, split=True, tile=None, chained=False):
     """The tensor-core kernel's arithmetic: a sequential f32 a_cum over each
     chunk, C Sᵀ, M x and (w∘x)ᵀ B with M, S and w∘x each as bf16 hi + lo
     (``split``) or as plain bf16 (``split=False``, the rounding the kernel
     does not use).  ``tile`` < ``chunk`` runs each chunk as sub-tiles with
-    the chunk's a_cum and the state carried, as the kernel does."""
+    the chunk's a_cum and the state carried, as the kernel does.
+
+    ``chained`` takes the Hopper kernel's order of a tile's sums: the tile's
+    own contribution U = (w∘x)ᵀ B from zero, then S_t = d·S_{t−1} + U in f32
+    (d = exp(a_end − a_base)), and y = M x + e·(C S_{t−1}ᵀ) + D x with the
+    handed-on S_{t−1} split hi/lo, rounded once.  Without it, the first
+    tensor-core kernel's order: y from e·(C Sᵀ) with M x added, and the
+    products added onto the decayed state."""
     parts = hi_lo if split else (lambda a: (bf16(a),))
     tile = tile or chunk
     Bb, S, H, P = x.shape
@@ -168,13 +177,20 @@ def ssd_tc_emulation(x, dt, A, Bm, Cm, D, chunk, split=True, tile=None):
                     sl = slice(c0 + t0, c0 + t0 + tile)
                     xc, Bc, Cc, d = x[b, sl, h], Bm[b, sl, g], Cm[b, sl, g], dt[b, sl, h]
                     a = a_chunk[t0 : t0 + tile].astype(np.float32)
-                    yc = sum(Cc @ part.T for part in parts(s)) * np.exp(a - a_base)[:, None]
+                    cs = sum(Cc @ part.T for part in parts(s)) * np.exp(a - a_base)[:, None]
                     L = np.where(tri, np.exp(np.where(tri, a[:, None] - a[None, :], 0)), 0)
                     M = ((Cc @ Bc.T) * L * d[None, :]).astype(np.float32)
-                    yc = yc + sum(part @ xc for part in parts(M))
+                    mx = sum(part @ xc for part in parts(M))
                     w = np.exp(a[-1] - a) * d
                     wx = (w[:, None] * xc).astype(np.float32)
-                    s = s * np.exp(a[-1] - a_base) + sum(part.T @ Bc for part in parts(wx))
+                    decay = np.float32(np.exp(a[-1] - a_base))
+                    if chained:
+                        u = sum(part.T @ Bc for part in parts(wx)).astype(np.float32)
+                        s = (decay * s + u).astype(np.float32)
+                        yc = mx + cs
+                    else:
+                        s = s * decay + sum(part.T @ Bc for part in parts(wx))
+                        yc = cs + mx
                     a_base = a[-1]
                     y[b, sl, h] = bf16(yc + xc * D[h])
             st[b, h] = s
@@ -231,6 +247,25 @@ def test_ssd_hi_lo_sub_tiles_hold_against_pallas_at_chunk256(jx, record_property
     worst = max(share(y, want_y), share(st, want_st))
     record_property("worst_share", worst)
     print(f"SSD hi+lo sub-tiles vs Pallas at chunk {chunk}: worst share {worst:.4f}")
+    assert worst <= MAX_SHARE
+
+
+@pytest.mark.parametrize("shape", SSD_DESIGN_SHAPES + [(1, 512, 8, 64, 1, 128, 256)],
+                         ids=["chunk128", "chunk100", "chunk8", "chunk256-sub-tiles"])
+def test_ssd_chained_order_holds_against_pallas(jx, shape, record_property):
+    """The Hopper kernel's order of sums (``chained``): each tile's state
+    contribution from zero, the handed-on state decayed and added, y as
+    M x + e·C Sᵀ + D x; chunk 256 as sub-tiles of ``ssd_tile(256)`` = 128
+    rows with the chunk's a_cum carried."""
+    from repro_torch.kernels.ssd import ssd_tile
+
+    B, S, H, P, G, N, chunk = shape
+    args = _ssd_inputs(23, B, S, H, P, G, N)
+    want_y, want_st = _pallas_ssd(jx, args, chunk)
+    y, st = ssd_tc_emulation(*args, chunk, tile=ssd_tile(chunk), chained=True)
+    worst = max(share(y, want_y), share(st, want_st))
+    record_property("worst_share", worst)
+    print(f"SSD chained order vs Pallas at {shape}: worst share {worst:.4f}")
     assert worst <= MAX_SHARE
 
 
@@ -434,6 +469,9 @@ SSD_TC_CASES = [c[:7] + (False,) for c in SSD_CUDA_CASES if c[7] == "bfloat16"] 
     (2, 512, 24, 64, 1, 128, 128, True),
     (1, 64, 2, 16, 1, 16, 16, False),
     (1, 96, 3, 16, 1, 32, 32, False),
+    (1, 8192, 128, 64, 1, 128, 256, True),  # a rank's 128 jamba heads: 128 chains of 64 tiles
+    (1, 256, 256, 64, 1, 128, 256, True),   # S = chunk: 256 chains of one hand-off, in a chunk
+    (1, 128, 200, 64, 1, 128, 128, False),  # S = chunk = the tile: 200 chains, no hand-off
 ]
 
 
@@ -449,6 +487,22 @@ def test_cuda_tc_ssd_kernel_matches_plain(cuda, B, S, H, P, G, N, chunk, strided
     want_y, want_st = SSD.ssd_scan_plain(*args, chunk=chunk)
     _close(y, want_y)
     _close(st, want_st)
+
+
+def test_cuda_tc_ssd_kernel_is_deterministic(cuda):
+    """The same inputs give bit-identical y and state, call after call: two
+    calls, then 20 back to back.  The tiles hand the state on between
+    blocks in whatever order the card schedules them, so a race in the
+    hand-off would show here."""
+    args = _ssd_args(36, 8, 2048, 24, 64, 1, 128, cuda, strided=True)
+    y0, st0 = SSD.ssd_scan_tc(*args, chunk=128)
+    y1, st1 = SSD.ssd_scan_tc(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1) and torch.equal(st0, st1)
+    outs = [SSD.ssd_scan_tc(*args, chunk=128) for _ in range(20)]
+    torch.cuda.synchronize()
+    for y, st in outs:
+        assert torch.equal(y, y0) and torch.equal(st, st0)
 
 
 def test_cuda_odd_widths_bf16_go_to_the_cuda_core_ssd_kernel(cuda):
