@@ -3,7 +3,10 @@
 These are the functions the model calls when ``cfg.use_kernels`` is set.  A
 CUDA tensor always goes to the kernel, which launches or raises; a CPU
 tensor goes to the kernel's plain PyTorch version.  Any other device raises.
-Each has an oracle in kernels/ref.py with the same signature.
+Each has an oracle in kernels/ref.py with the same signature.  Each call is
+a ``kernel.<name>`` leaf span (``obs/spans.py``: no profiler range, so a
+caller's range around the entry keeps its kernels) with the shapes it was
+handed.
 
 The kernels have no backward, as the reference's Pallas kernels have none:
 an input that requires grad, with grad mode on, raises rather than leave the
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ssd as _ssd
+from repro_torch.obs.spans import leaf_span
 
 
 def _forward_only(name: str, *inputs: torch.Tensor) -> None:
@@ -39,10 +43,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blocked online-softmax attention. q (B,Sq,H,hd); k/v (B,Sk,KV,hd)."""
     _forward_only("flash_attention", q, k, v)
-    if q.is_cuda:
-        return _flash.flash_attention(q, k, v, causal=causal, window=window)
-    if q.device.type == "cpu":
-        return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    with leaf_span("kernel.flash_attention", q=q.shape, kv=k.shape):
+        if q.is_cuda:
+            return _flash.flash_attention(q, k, v, causal=causal, window=window)
+        if q.device.type == "cpu":
+            return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
@@ -58,8 +63,9 @@ def ssd_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD chunked scan. Returns (y (B,S,H,P), state (B,H,P,N))."""
     _forward_only("ssd_scan", x, dt, A, Bm, Cm, D)
-    if x.is_cuda:
-        return _ssd.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
-    if x.device.type == "cpu":
-        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk)
+    with leaf_span("kernel.ssd_scan", x=x.shape, B=Bm.shape, chunk=chunk):
+        if x.is_cuda:
+            return _ssd.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+        if x.device.type == "cpu":
+            return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk)
     raise ValueError(f"ssd_scan: no kernel for device {x.device}")

@@ -50,6 +50,7 @@ from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.parallel import MeshContext, vocab_gather
+from repro_torch.obs.spans import span
 from repro_torch.training.optimizer import OptSettings, adamw_update
 
 
@@ -141,7 +142,10 @@ def loss_and_grads(
     sum to the reference's loss whatever labels are masked where.  The
     gradients are this rank's shards', summed over the batch axes
     (``sharding._GatherOnUse``); the loss is the global one, on every
-    rank."""
+    rank.
+
+    Each microbatch's loss is a ``train.forward`` span and its backward,
+    recomputation included, a ``train.backward`` span (``obs/spans.py``)."""
     named = list(params.named_parameters())
     B = next(iter(batch.values())).shape[0]
     ctx = make_mesh_context(rules, cfg, B)
@@ -159,14 +163,18 @@ def loss_and_grads(
         return loss if not axes else _sum_over(loss, rules.mesh, axes)
 
     if microbatches == 1:
-        loss = loss_of(batch)
-        loss.backward()
+        with span("train.forward"):
+            loss = loss_of(batch)
+        with span("train.backward"):
+            loss.backward()
         return total(loss.detach()), {n: p.grad for n, p in named}
     grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in named}
     loss = torch.zeros((), dtype=torch.float32, device=params.device)
     for i in range(microbatches):
-        loss_i = loss_of({k: x.chunk(microbatches)[i] for k, x in batch.items()})
-        loss_i.backward()
+        with span("train.forward"):
+            loss_i = loss_of({k: x.chunk(microbatches)[i] for k, x in batch.items()})
+        with span("train.backward"):
+            loss_i.backward()
         for n, p in named:
             grads[n].add_(p.grad)
             p.grad = None
@@ -192,13 +200,15 @@ def make_train_step(
     which each rank runs its rows of each microbatch, updates its shards and
     returns the loss of the global batch, the same on every rank.
     ``global_batch`` is the reference's argument; the step reads the batch
-    size from the batch."""
+    size from the batch.  The update and the gradients' reset are a
+    ``train.optimizer`` span."""
 
     def train_step(params, opt_state: Dict, batch: Dict[str, torch.Tensor]):
         loss, grads = loss_and_grads(params, cfg, batch, remat_policy, microbatches, rules)
-        params, opt_state = adamw_update(params, grads, opt_state, settings)
-        for p in params.parameters():
-            p.grad = None
+        with span("train.optimizer"):
+            params, opt_state = adamw_update(params, grads, opt_state, settings)
+            for p in params.parameters():
+                p.grad = None
         return loss, params, opt_state
 
     return train_step

@@ -75,6 +75,7 @@ from repro_torch.models.ssm import (
     ssm_empty_carry,
     ssm_param_shapes,
 )
+from repro_torch.obs.spans import span
 
 _F32_LEAVES = ("A_log", "D", "dt_bias")  # small SSM params stay f32
 
@@ -323,6 +324,7 @@ def _period_forward(
     positions: torch.Tensor,
     collect_cache: bool,
     inner_remat: bool = False,
+    first_layer: int = 0,
 ):
     """One period over a full sequence (train / prefill).  Returns (x,
     caches) where caches[f"pos{i}"] holds the decode carry when
@@ -333,7 +335,11 @@ def _period_forward(
     ``inner_remat`` additionally checkpoints every sublayer (the mixer and
     the channel mix), as the reference's "sublayer" policy does.  Each
     checkpointed call gets its block as an argument, never through a
-    closure: the backward recomputes it after the loop has moved on."""
+    closure: the backward recomputes it after the loop has moved on.
+
+    Each mixer with its norm and residual is a ``model.mixer`` span, each
+    channel mix a ``model.mlp`` span (``obs/spans.py``), ``layer`` counted
+    from ``first_layer``, the index of the period's first layer."""
 
     def ck(f, *args):
         return checkpointed(f, *args) if inner_remat else f(*args)
@@ -341,19 +347,21 @@ def _period_forward(
     caches = {}
     for i, (mixer, mlp) in enumerate(zip(cfg.period, cfg.mlp_pattern)):
         blk = period[f"pos{i}"]
-        h = rms_norm(x, blk.norm1, cfg.norm_eps)
-        if mixer == "attn":
-            attn = functools.partial(attention_block, positions=positions, ctx=ctx, full_kv=collect_cache)
-            y, (k, v) = ck(attn, blk.mixer, h, cfg)
-            carry = {"k": k, "v": v}
-        else:
-            y, (state, conv) = ck(functools.partial(ssm_block, ctx=ctx), blk.mixer, h, cfg)
-            carry = {"state": state, "conv": conv}
+        with span("model.mixer", layer=first_layer + i, mixer=mixer):
+            h = rms_norm(x, blk.norm1, cfg.norm_eps)
+            if mixer == "attn":
+                attn = functools.partial(attention_block, positions=positions, ctx=ctx, full_kv=collect_cache)
+                y, (k, v) = ck(attn, blk.mixer, h, cfg)
+                carry = {"k": k, "v": v}
+            else:
+                y, (state, conv) = ck(functools.partial(ssm_block, ctx=ctx), blk.mixer, h, cfg)
+                carry = {"state": state, "conv": conv}
+            x = x + y
         if collect_cache:
             caches[f"pos{i}"] = carry
-        x = x + y
         if mlp != "none":
-            x = ck(_channel_mix, blk, x, cfg, mlp, ctx)
+            with span("model.mlp", layer=first_layer + i):
+                x = ck(_channel_mix, blk, x, cfg, mlp, ctx)
     return x, caches
 
 
@@ -433,8 +441,8 @@ def forward(
     if remat and remat_policy == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
     per_period = []
-    for period in params.layers:
-        args = (period, x, cfg, ctx, positions, collect_cache, inner)
+    for p, period in enumerate(params.layers):
+        args = (period, x, cfg, ctx, positions, collect_cache, inner, p * len(cfg.period))
         x, caches = checkpointed(_period_forward, *args, **kw) if remat else _period_forward(*args)
         per_period.append(caches)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)

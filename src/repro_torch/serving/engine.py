@@ -2,9 +2,12 @@
 steps against the model's KV/SSM cache, with per-sequence lengths.  The PyTorch
 port of ``repro.serving.engine``.
 
-On the card the clock is read only after ``torch.cuda.synchronize()``, so
-``prefill_s`` and ``decode_s`` measure the device's work and not just the
-launches.
+On the card ``prefill_s`` and ``decode_s`` come from CUDA event pairs on the
+stream, read once the tokens are on the host, so they measure the device's
+work and ``generate`` waits for the device only where the host needs the
+tokens; on the CPU they come from the host clock.  Each call is a
+``serve.generate`` span (``obs/spans.py``) holding the prompts' copy to the
+device (``serve.prompts_to_device``) and the model's spans.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs.spans import span
 
 
 @dataclasses.dataclass
@@ -54,11 +58,21 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
+        self.batches = 0  # generate calls so far: each call's batch id
 
-    def _clock(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.monotonic()
+    def _mark(self):
+        """A point in the device's work: a timing event recorded on the
+        current stream on the card, the host clock on the CPU."""
+        if self.device.type != "cuda":
+            return time.monotonic()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    @staticmethod
+    def _seconds(start, end) -> float:
+        """Seconds between two marks; events must have completed."""
+        return end - start if isinstance(start, float) else start.elapsed_time(end) / 1e3
 
     @torch.inference_mode()
     def generate(
@@ -75,29 +89,33 @@ class ServeEngine:
         lens = {len(p) for p in prompts}
         if len(lens) != 1:
             raise ValueError("ServeEngine.generate requires uniform prompt lengths")
-        toks = torch.tensor(prompts, dtype=torch.int64, device=self.device)
-        B, L = toks.shape
-        t0 = self._clock()
-        logits, (caches, kv_len) = M.prefill(self.params, self.cfg, {"tokens": toks})
-        caches = grow_kv(caches, max_new_tokens)
-        state = (caches, kv_len)
-        prefill_s = self._clock() - t0
+        self.batches += 1
+        with span("serve.generate", batch=self.batches, requests=len(prompts),
+                  prompt_tokens=len(prompts) * lens.pop()):
+            with span("serve.prompts_to_device"):
+                toks = torch.tensor(prompts, dtype=torch.int64, device=self.device)
+            B, L = toks.shape
+            t0 = self._mark()
+            logits, (caches, kv_len) = M.prefill(self.params, self.cfg, {"tokens": toks})
+            caches = grow_kv(caches, max_new_tokens)
+            state = (caches, kv_len)
+            t1 = self._mark()
 
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        out: List[List[int]] = [[] for _ in range(B)]
-        t1 = self._clock()
-        current = torch.argmax(logits, -1)[:, None]
-        for i, t in enumerate(current[:, 0].tolist()):
-            out[i].append(t)
-        for step in range(max_new_tokens - 1):
-            logits, state = M.decode_step(self.params, self.cfg, current, state, L + step)
-            if greedy:
-                nxt = torch.argmax(logits, -1)
-            else:
-                probs = torch.softmax(logits, -1)
-                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
-            current = nxt[:, None]
-            for i, t in enumerate(nxt.tolist()):
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            out: List[List[int]] = [[] for _ in range(B)]
+            current = torch.argmax(logits, -1)[:, None]
+            t2 = self._mark()  # marked before each read of the tokens, which waits for it
+            for i, t in enumerate(current[:, 0].tolist()):
                 out[i].append(t)
-        decode_s = self._clock() - t1
-        return GenerationResult(out, prefill_s, decode_s)
+            for step in range(max_new_tokens - 1):
+                logits, state = M.decode_step(self.params, self.cfg, current, state, L + step)
+                if greedy:
+                    nxt = torch.argmax(logits, -1)
+                else:
+                    probs = torch.softmax(logits, -1)
+                    nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+                current = nxt[:, None]
+                t2 = self._mark()
+                for i, t in enumerate(nxt.tolist()):
+                    out[i].append(t)
+        return GenerationResult(out, self._seconds(t0, t1), self._seconds(t1, t2))

@@ -21,6 +21,7 @@ from repro_torch.core.loader import Batch, DeliLoader
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import DecoderLM, resolve_device
+from repro_torch.obs.spans import span
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import OptSettings, adamw_init
 from repro_torch.weights import params_from_reference
@@ -92,8 +93,9 @@ class Trainer:
 
     # -- data ----------------------------------------------------------------
     def _to_device_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        tokens = batch.stacked(self.decode_fn).astype(np.int64)
-        tokens = torch.from_numpy(tokens[:, : self.tcfg.seq_len + 1]).to(self.device)
+        with span("train.batch_to_device"):
+            tokens = batch.stacked(self.decode_fn).astype(np.int64)
+            tokens = torch.from_numpy(tokens[:, : self.tcfg.seq_len + 1]).to(self.device)
         return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
     # -- checkpoint/restore ----------------------------------------------------
@@ -123,33 +125,42 @@ class Trainer:
 
     # -- the loop ---------------------------------------------------------------
     def train(self, num_steps: int, epochs: int = 10_000) -> List[StepMetrics]:
+        """``num_steps`` steps, each a ``train.step`` span (``obs/spans.py``)
+        around the loader's ``next`` (``train.next_batch``), the batch's copy,
+        the step and the loss's read (``train.sync``)."""
         target = self.step + num_steps
         epoch = self.loader.state_dict()["epoch"]
+        tokens = self.tcfg.batch_size * self.tcfg.seq_len
         while self.step < target and epoch < epochs:
             self.loader.set_epoch(epoch)
-            for batch in self.loader:
-                dev_batch = self._to_device_batch(batch)
-                t0 = time.monotonic()
-                loss, self.params, self.opt_state = self._step_fn(
-                    self.params, self.opt_state, dev_batch
-                )
-                loss = loss.item()  # synchronises: includes device compute
-                compute_s = time.monotonic() - t0
-                self.step += 1
-                m = StepMetrics(
-                    self.step, loss, batch.data_wait_s, compute_s,
-                    batch.hits, batch.misses,
-                )
-                self.metrics.append(m)
-                if self.step % self.tcfg.log_every == 0:
-                    print(
-                        f"step {self.step} loss {loss:.4f} "
-                        f"wait {m.data_wait_s*1e3:.1f}ms ({m.wait_fraction:.0%}) "
-                        f"miss {batch.misses}/{batch.hits + batch.misses}"
+            batches = iter(self.loader)
+            while self.step < target:
+                with span("train.step", step=self.step + 1, tokens=tokens):
+                    with span("train.next_batch"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    dev_batch = self._to_device_batch(batch)
+                    t0 = time.monotonic()
+                    loss, self.params, self.opt_state = self._step_fn(
+                        self.params, self.opt_state, dev_batch
                     )
-                self._maybe_checkpoint()
-                if self.step >= target:
-                    break
+                    with span("train.sync"):
+                        loss = loss.item()  # synchronises: includes device compute
+                    compute_s = time.monotonic() - t0
+                    self.step += 1
+                    m = StepMetrics(
+                        self.step, loss, batch.data_wait_s, compute_s,
+                        batch.hits, batch.misses,
+                    )
+                    self.metrics.append(m)
+                    if self.step % self.tcfg.log_every == 0:
+                        print(
+                            f"step {self.step} loss {loss:.4f} "
+                            f"wait {m.data_wait_s*1e3:.1f}ms ({m.wait_fraction:.0%}) "
+                            f"miss {batch.misses}/{batch.hits + batch.misses}"
+                        )
+                    self._maybe_checkpoint()
             epoch += 1
         if self._ckpt:
             self._ckpt.wait()
