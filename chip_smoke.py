@@ -29,7 +29,14 @@ its check does not hold:
    past the zoo's widths, as the Pallas kernel takes them: P 128 at N 128
    (bf16, the tensor cores on two P tiles), P 128 at N 256 and P 80 at N 136 (bf16 and f32, the CUDA-core
    kernel on tiles of 64 rows, f32 held against the plain version in
-   float64), each with its bound at the tile and at the chunk;
+   float64), each with its bound at the tile and at the chunk; then the
+   Mamba-2 block's two fused kernels (``csrc/ssm_block.cu``: the conv with
+   its bias and SiLU, the gate with its RMSNorm) against their plain
+   versions within one unit in the model dtype's last place (8 for the
+   f32 norm, whose sum of squares runs in another order), at the
+   mamba2-130m benchmark cell's 128 x 2048 and at jamba's widths, in bf16
+   and f32 (``ssm_block_kernel`` rows: ms, the byte bound, ``bound_share``,
+   the plain version's ms);
 4. serve h2o-danube-3-4b at full width from seeded random weights drawn on
    the card: f32 prefill through the CUDA-core kernel against the non-kernel
    path and prefill against step-by-step decode, then its main path — a bf16
@@ -39,8 +46,8 @@ its check does not hold:
    one decode step (device busy share, the kernels that take the time);
 5. the same for mamba2-130m at full width and full depth: f32 checks at
    2 x 1000 tokens and 8 tokens, then its main path — 8 prompts of 2048
-   tokens with 64 greedy tokens each, 24 tensor-core SSD launches per
-   prefill;
+   tokens with 64 greedy tokens each, 24 tensor-core SSD launches and 24
+   launches of each fused block kernel per prefill;
    then phi3.5-moe-42b-a6.6b (16 experts, top-2, MoE in every layer) at full
    width, cut to 24 layers to fit the card: f32 checks at 4 layers (kernel
    path against plain path at 2 x 512; prefill against decode at a capacity
@@ -48,8 +55,9 @@ its check does not hold:
    flash launches and no SSD launch per prefill — and ``from_config``'s peak
    memory held within 2 GB of the weights' bytes; then the hybrid period:
    jamba's reduced config in f32 through both CUDA-core kernels (2 flash and
-   14 SSD launches a prefill), logits and caches against the plain path and
-   greedy tokens equal to the plain path's;
+   14 SSD launches a prefill, and 14 of each fused block kernel), logits
+   and caches against the plain path and greedy tokens equal to the plain
+   path's;
    then SSD chunk 256: one SSM layer of jamba-1.5-large at full width
    (0.407 B parameters, B 1 x S 8192), kernel path against plain path in
    f32 and bf16, one SSD launch a call (``ssm_block`` lines; the SSD sweep
@@ -560,6 +568,80 @@ def ssd_checks(ssd) -> list:
     return rows
 
 
+# name, arch, B, S: the conv and the gated norm of one SSM layer at the
+# model's widths (the in_proj's f32 output drawn, not computed)
+SSM_BLOCK_SHAPES = [
+    ("mamba prefill (the benchmark cell's 128 x 2048)", "mamba2-130m", 128, 2048),
+    ("mamba serve prefill (main path)", "mamba2-130m", MAMBA.serve_b, MAMBA.serve_l),
+    ("jamba width", HYBRID, JAMBA_SSM_B, JAMBA_SSM_S),
+]
+NO_LIBRARY_SSM_BLOCK = "none: no single PyTorch call computes it"
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest gap between got and want in units in the last place of
+    their dtype: how many representable numbers apart they lie
+    (tests/test_torch_ssm_block_kernels.py)."""
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[want.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & torch.iinfo(bits).max), i)
+
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def ssm_block_kernel_checks(configs, sb) -> list:
+    """Each fused SSM block kernel through its wrapper against its plain
+    version on the card (within one unit in the model dtype's last place,
+    8 for the f32 norm: SiLU's exp and the norm's sum order may round
+    apart), one launch a call, with its time, its plain version's (the
+    eager ops the model ran before), and its byte bound: the conv reads C
+    f32 columns a row and writes C in the dtype, the norm reads y in the
+    dtype and z in f32 and writes d in the dtype."""
+    rows = []
+    for name, arch, B, S in SSM_BLOCK_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg = dataclasses.replace(configs.get(arch), dtype=str(dtype).replace("torch.", ""))
+            di, GN, H = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+            C, es = di + 2 * GN, torch.finfo(dtype).bits // 8
+            g = torch.Generator(device="cuda").manual_seed(5)
+            zxbcdt = torch.randn(B, S, 2 * di + 2 * GN + H, generator=g, device="cuda")
+            w = torch.randn(cfg.ssm_conv, C, generator=g, device="cuda") * 0.5
+            b = torch.randn(C, generator=g, device="cuda") * 0.3
+            y = torch.randn(B, S, di, generator=g, device="cuda").to(dtype)
+            scale = (1 + 0.1 * torch.randn(di, generator=g, device="cuda")).to(dtype)
+            xBC, z = zxbcdt[..., di : di + C], zxbcdt[..., :di]
+            cases = (
+                ("ssm_conv", sb.ssm_conv, lambda: sb.ssm_conv(xBC, w, b, dtype),
+                 lambda: sb.ssm_conv_plain(xBC, w, b, dtype), B * S * C * (4 + es)),
+                ("ssm_gate_norm", sb.ssm_gate_norm, lambda: sb.ssm_gate_norm(y, z, scale, cfg.norm_eps),
+                 lambda: sb.ssm_gate_norm_plain(y, z, scale, cfg.norm_eps), B * S * di * (2 * es + 4)),
+            )
+            for kernel, fn, run, plain, nbytes in cases:
+                before = fn.launches
+                got = run()
+                torch.cuda.synchronize()
+                launched(fn, before, f"{kernel} {name}")
+                err = ulps(got, plain())
+                # f32 norm: its sum of squares runs in another order than PyTorch's
+                tol = 8 if kernel == "ssm_gate_norm" and dtype == torch.float32 else 1
+                check(err <= tol, f"{kernel} disagrees with plain at {name} {dtype}: {err} units in the last place")
+                kernel_ms, plain_ms = time_in_turns(run, plain, 20)
+                bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+                row = dict(kernel=kernel, shape=name, arch=arch, B=B, S=S, d_inner=di, C=C,
+                           dtype=str(dtype).replace("torch.", ""), max_abs_err=float((got.float() - plain().float()).abs().max()),
+                           max_ulps=err, tol_ulps=tol, ms=kernel_ms, previous_ms=plain_ms,
+                           plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY_SSM_BLOCK, bytes=nbytes,
+                           bound_ms=bound_ms, bound_by="bytes", bound_share=bound_ms / kernel_ms)
+                print("ssm_block_kernel " + json.dumps(row), flush=True)
+                rows.append(row)
+                del got
+            del zxbcdt, w, b, y, scale, xBC, z
+            torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Serving at full width
 # ---------------------------------------------------------------------------
@@ -575,14 +657,17 @@ def read_counts(kernels) -> dict:
 def prefill_counts(cfg) -> dict:
     """The launches one prefill must make: one flash launch per attention
     layer and one SSD launch per SSM layer, each through its dispatcher and
-    the variant the dtype picks (bf16: tensor cores, f32: CUDA cores).
-    Every kernel left out must not launch at all."""
+    the variant the dtype picks (bf16: tensor cores, f32: CUDA cores), and
+    one launch of each fused block kernel per SSM layer (one process: the
+    heads whole).  Every kernel left out must not launch at all."""
     variant = "tc" if cfg.torch_dtype == torch.bfloat16 else "cuda_core"
     want = {}
     for mixer, family in (("attn", "flash_attention"), ("ssm", "ssd_scan")):
         n = cfg.n_periods * cfg.period.count(mixer)
         if n:
             want[family] = want[f"{family}_{variant}"] = n
+    if "ssd_scan" in want:
+        want["ssm_conv"] = want["ssm_gate_norm"] = want["ssd_scan"]
     return want
 
 
@@ -798,8 +883,9 @@ def serve_hybrid_smoke(configs, M, ServeEngine, kernels) -> dict:
     cfg = dataclasses.replace(configs.reduce_for_smoke(configs.get(HYBRID)), dtype="float32")
     plain = dataclasses.replace(cfg, use_kernels=False)
     want = prefill_counts(cfg)
-    check(want == {"flash_attention": 2, "flash_attention_cuda_core": 2,
-                   "ssd_scan": 14, "ssd_scan_cuda_core": 14}, f"{cfg.name}: period {cfg.period}")
+    check(want == {"flash_attention": 2, "flash_attention_cuda_core": 2, "ssd_scan": 14,
+                   "ssd_scan_cuda_core": 14, "ssm_conv": 14, "ssm_gate_norm": 14},
+          f"{cfg.name}: period {cfg.period}")
     model = M.DecoderLM.from_config(cfg, seed=0, device="cuda")
     B, L, NEW = 4, 32, 16  # examples/serve_batched.py's batch
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -865,7 +951,7 @@ def jamba_ssm_block_check(configs, M, kernels) -> dict:
         n_params = sum(t.numel() for t in params.values())
         x = torch.randn(B, S, cfg.d_model, generator=g, device="cuda").to(cfg.torch_dtype)
         variant = "tc" if dtype == "bfloat16" else "cuda_core"
-        want = {"ssd_scan": 1, f"ssd_scan_{variant}": 1}
+        want = {"ssd_scan": 1, f"ssd_scan_{variant}": 1, "ssm_conv": 1, "ssm_gate_norm": 1}
         with torch.inference_mode():
             zero_counts(kernels)
             y_k, (st_k, _) = ssm_block(params, x, cfg)
@@ -1672,9 +1758,11 @@ def kernel_fns() -> dict:
     """Every kernel wrapper with a launch count, by name."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssm_block as sb
 
     return {fn.__name__: fn for fn in (fa.flash_attention, fa.flash_attention_tc, fa.flash_attention_cuda_core,
-                                       ssd.ssd_scan, ssd.ssd_scan_tc, ssd.ssd_scan_cuda_core)}
+                                       ssd.ssd_scan, ssd.ssd_scan_tc, ssd.ssd_scan_cuda_core,
+                                       sb.ssm_conv, sb.ssm_gate_norm)}
 
 
 class EntryInputs:
@@ -1941,7 +2029,8 @@ def tp_serve_check(configs, kernels) -> dict:
     for dtype in ("float32", "bfloat16"):
         key = f"c|{dtype}"
         variant = "tc" if dtype == "bfloat16" else "cuda_core"
-        want = {"ssd_scan": 1, f"ssd_scan_{variant}": 1}
+        # the conv on the rank's channels; the norm's row is split, so its sum of squares over model
+        want = {"ssd_scan": 1, f"ssd_scan_{variant}": 1, "ssm_conv": 1}
         row = dict(part="c", arch=HYBRID, layer="ssm_block", dtype=dtype, batch=JAMBA_SSM_B, seq=JAMBA_SSM_S,
                    mesh="data 1 x model 2", ranks=[])
         for r, res in enumerate(ranks):
@@ -2132,6 +2221,7 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssm_block as sb
     from repro_torch.models import model as M
 
     card = card_line()
@@ -2149,6 +2239,7 @@ def main() -> None:
     kernels = kernel_fns()
     flash_rows = kernel_checks(fa)
     ssd_rows = ssd_checks(ssd)
+    block_rows = ssm_block_kernel_checks(configs, sb)
     danube_f32 = serve_f32_checks(configs, M, DANUBE, kernels)
     danube = serve_main_path(configs, M, ServeEngine, DANUBE, kernels)
     mamba_f32 = serve_f32_checks(configs, M, MAMBA, kernels)
@@ -2207,10 +2298,17 @@ def main() -> None:
         check(line["ms"] < line["previous_ms"],
               f"{line['name']} tensor-core kernel {line['ms']} ms is not faster than the "
               f"CUDA-core kernel's {line['previous_ms']} ms at the main-path shape")
+    # the fused block kernels at the benchmark cell's shape; previous_ms is the plain version's
+    for kernel in ("ssm_conv", "ssm_gate_norm"):
+        row = next(r for r in block_rows if r["kernel"] == kernel)
+        lines.append(kernel_line(kernel, "cuda_core", "src/repro_torch/csrc/ssm_block.cu",
+                                 "none (XLA fuses this work on the TPU)", by_run(kernel), row))
     for rows, label in ((flash_rows, "flash_attention"), (ssd_rows, "ssd_scan")):
         worst = max(r["tol_share"] for r in rows)
         print(f"kernels: {label} ok on {len(rows)} shapes (worst share of the tolerance "
               f"{worst:.3f})", flush=True)
+    print(f"kernels: ssm_conv, ssm_gate_norm ok on {len(block_rows) // 2} shapes each (worst "
+          f"{max(r['max_ulps'] for r in block_rows):.3f} units in the last place)", flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import ssm_block as _ssm
 from repro_torch.obs.spans import leaf_span
 
 
@@ -69,3 +70,28 @@ def ssd_scan(
         if x.device.type == "cpu":
             return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk)
     raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+
+
+def ssm_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Causal depthwise conv, bias and SiLU of the Mamba-2 block. xBC (B,S,C)
+    f32 (a view of the in_proj's output); w (K,C), b (C,) f32. Returns
+    (B,S,C) in ``dtype``."""
+    _forward_only("ssm_conv", xBC, w, b)
+    with leaf_span("kernel.ssm_conv", xBC=xBC.shape, K=w.shape[0]):
+        if xBC.is_cuda:
+            return _ssm.ssm_conv(xBC, w, b, dtype)
+        if xBC.device.type == "cpu":
+            return _ssm.ssm_conv_plain(xBC, w, b, dtype)
+    raise ValueError(f"ssm_conv: no kernel for device {xBC.device}")
+
+
+def ssm_gate_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """``rms_norm(y * silu(z)) * scale`` of the Mamba-2 block. y (B,S,d) in the
+    model dtype; z (B,S,d) f32 (a view of the in_proj's output); scale (d,)."""
+    _forward_only("ssm_gate_norm", y, z, scale)
+    with leaf_span("kernel.ssm_gate_norm", y=y.shape):
+        if y.is_cuda:
+            return _ssm.ssm_gate_norm(y, z, scale, eps)
+        if y.device.type == "cpu":
+            return _ssm.ssm_gate_norm_plain(y, z, scale, eps)
+    raise ValueError(f"ssm_gate_norm: no kernel for device {y.device}")

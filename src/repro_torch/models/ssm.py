@@ -12,8 +12,10 @@ Three computations of the same selective-SSM recurrence
     when ``cfg.use_kernels`` is off);
   * ``ssd_decode_step`` — the one-token update of the serving engine.
 
-With ``cfg.use_kernels`` the prefill goes through ``kernels.ops.ssd_scan``
-(the hand-written CUDA kernel on the card, its plain version on the CPU).
+With ``cfg.use_kernels`` the prefill goes through ``kernels.ops``: the conv
+(``ssm_conv``), the scan (``ssd_scan``) and the gated norm
+(``ssm_gate_norm``), each a hand-written CUDA kernel on the card and its
+plain version on the CPU.
 Shapes follow the reference: x (B,S,H,P), dt (B,S,H), A (H,) one scalar per
 head, B/C (B,S,G,N) with heads grouped G | H.  Products accumulate in f32,
 as the reference's ``preferred_element_type=jnp.float32`` einsums do.
@@ -234,12 +236,20 @@ def ssm_block(params, x: torch.Tensor, cfg: ArchConfig, ctx: Optional[MeshContex
         x = into_region(x, ctx)
     zxbcdt = _dot_f32(x, params["in_proj"])  # f32
     z, xr, Bm, Cm, dt = _split_proj(cfg, zxbcdt, di, H)
-    # Activation streams (z, x, B, C) live in the model dtype; only the dt
-    # path, the decay chain and the SSD state stay f32.
-    z = z.to(dt0)
-    xBC = torch.cat([xr, Bm, Cm], dim=-1).to(dt0)
-    xBC = _causal_conv(xBC, params["conv_w"].float(), params["conv_b"].float())
-    xBC = xBC.to(dt0)
+    if cfg.use_kernels:
+        from repro_torch.kernels import ops  # lazy: no cycle
+
+        # x, B and C read in place from the f32 projection, rounded to the
+        # model dtype, convolved and through SiLU in one pass
+        xBC = ops.ssm_conv(zxbcdt[..., di : 2 * di + 2 * G * N], params["conv_w"].float(),
+                           params["conv_b"].float(), dt0)
+    else:
+        # Activation streams (z, x, B, C) live in the model dtype; only the dt
+        # path, the decay chain and the SSD state stay f32.
+        z = z.to(dt0)
+        xBC = torch.cat([xr, Bm, Cm], dim=-1).to(dt0)
+        xBC = _causal_conv(xBC, params["conv_w"].float(), params["conv_b"].float())
+        xBC = xBC.to(dt0)
     # x, B and C stay views of xBC: the kernel reads them through their strides
     xr, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
     # F.softplus (the identity above 20, where log1p(exp(x)) and x agree in
@@ -258,15 +268,17 @@ def ssm_block(params, x: torch.Tensor, cfg: ArchConfig, ctx: Optional[MeshContex
         Cg = F.pad(Cg, (0, 0, 0, 0, 0, padn))
     D = params["D"].float()
     if cfg.use_kernels:
-        from repro_torch.kernels.ops import ssd_scan  # lazy: no cycle
-
         # y + D·x comes back rounded once to the model dtype
-        y, ssd_state = ssd_scan(xh, dtv, A, Bg, Cg, D, chunk=chunk)
-        y = y.float()
+        y, ssd_state = ops.ssd_scan(xh, dtv, A, Bg, Cg, D, chunk=chunk)
+        y = y[:, :S].reshape(Bb, S, di)
+        if heads is None:  # the norm's row is whole on this rank: one pass, z read in place
+            y = ops.ssm_gate_norm(y, z, params["gate_norm"], cfg.norm_eps)
+        else:
+            y = _gated_norm(y * F.silu(z.to(dt0)), params["gate_norm"], cfg, ctx, heads)
     else:
         y, ssd_state = ssd_chunked(xh, dtv, A, Bg, Cg, D, chunk=chunk)
-    y = y[:, :S].reshape(Bb, S, di).to(dt0)
-    y = _gated_norm(y * F.silu(z), params["gate_norm"], cfg, ctx, heads)
+        y = y[:, :S].reshape(Bb, S, di).to(dt0)
+        y = _gated_norm(y * F.silu(z), params["gate_norm"], cfg, ctx, heads)
     out = _out_proj(y, params["out_proj"], ctx, heads, dt0)
     # conv tail: last (K-1) *pre-conv* channel values, for incremental decode
     K = cfg.ssm_conv
