@@ -25,7 +25,7 @@ from bench_port.frozen.bucket import TableIBucket
 from bench_port.frozen.flops import train_flops
 from bench_port.frozen.payloads import make_lm_payloads
 from bench_port.harness import Run, arch_config, free_device, profile, reference_class, start_device
-from bench_port.reference.common import Precision, no_tf32
+from bench_port.reference.common import Precision, no_tf32, worst
 from bench_port.reference.optim import AdamW
 from bench_port.weights import leaf_slices, make_weights, nest
 
@@ -45,10 +45,11 @@ def slice_norms(flat: dict, like: dict = None) -> dict:
 
 
 def worst_leaf(prog: dict, ref: dict, keep=None) -> float:
-    """max over leaves of |prog - ref| / max(ref, the median leaf's ref)."""
+    """max over leaves of |prog - ref| / max(ref, the median leaf's ref);
+    NaN where a leaf reads NaN."""
     names = [n for n in ref if keep is None or n in keep]
     med = float(np.median([ref[n] for n in names]))
-    return max(abs(prog[n] - ref[n]) / max(ref[n], med, 1e-30) for n in names)
+    return worst(*(abs(prog[n] - ref[n]) / max(ref[n], med, 1e-30) for n in names))
 
 
 def reference_readings(cfg, traffic, seed, device, rows, prec: Precision) -> dict:
@@ -84,7 +85,7 @@ def moved(ref: dict) -> set:
 
 def compare(prog: dict, ref: dict) -> dict:
     return dict(
-        loss_rel=max(abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"])),
+        loss_rel=worst(*(abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"]))),
         grad_rel=worst_leaf(prog["grad"], ref["grad"]),
         change_rel=worst_leaf(prog["change"], ref["change"], moved(ref)),
     )

@@ -50,4 +50,25 @@ def token_altered():
         yield
 
 
-FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch, "token_altered": token_altered}
+@contextlib.contextmanager
+def cache_altered():
+    """The prefill hands on its caches with the last position of the period
+    altered: each of its entries negated in the first period."""
+    import repro_torch.models.model as M
+
+    prefill = M.prefill
+
+    def altered(*args, **kwargs):
+        logits, (caches, kv_len) = prefill(*args, **kwargs)
+        last = max(caches, key=lambda pos: int(pos[len("pos"):]))
+        caches = dict(caches, **{last: {name: t.clone() for name, t in caches[last].items()}})
+        for t in caches[last].values():
+            t[0].neg_()
+        return logits, (caches, kv_len)
+
+    with mock.patch.object(M, "prefill", altered):
+        yield
+
+
+FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch, "token_altered": token_altered,
+          "cache_altered": cache_altered}

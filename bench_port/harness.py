@@ -11,8 +11,10 @@ Every metric is ``metrics/<name>.py`` with a ``read(run)`` that returns a
 number or None (nothing to read); a metric may list in ``ENTRIES`` the
 port functions (``module:attribute``) it wants wrapped in a
 ``torch.profiler.record_function`` range during the traced sub-window.
-A new cell, traffic mix or metric is new files and a new entry: no file
-here changes.
+A configuration of any layer pattern is its file (``layouts/__init__.py``),
+with a layout module of its own where the built-in layout does not know
+its layers.  A new cell, traffic mix, configuration or metric is new files
+and a new entry: no file here changes.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")  # top-level module names, whole
 NAME_CHARS = 120  # a device operation's name in the breakdown, cut to this many characters
+ROOT_KEY = "_root"  # the checkout a configuration was read from, where its reference and layout are found
 
 
 def load_json(path: str) -> dict:
@@ -46,9 +49,11 @@ def load_cell(workload: str, root: str = ROOT) -> dict:
     cell = cells[workload]
     conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     here = os.path.join(root, os.path.basename(HERE))
+    config = load_json(os.path.join(root, conf["file"]))
+    config[ROOT_KEY] = root
     return dict(
         cell=cell,
-        config=load_json(os.path.join(root, conf["file"])),
+        config=config,
         traffic=load_json(os.path.join(here, "traffic", cell["traffic"] + ".json")),
         limits=load_json(os.path.join(here, "limits", workload + ".json")),
         end_to_end=[m for m in bench["end_to_end"] if workload in m.get("workloads", [workload])],
@@ -103,7 +108,8 @@ def start_device(device: str) -> None:
 
 
 def reference_class(cfg: dict):
-    mod = importlib.import_module("bench_port.reference." + cfg["reference"])
+    """The plain reference the configuration names, from its checkout."""
+    mod = load_module("reference", cfg["reference"], cfg.get(ROOT_KEY, ROOT))
     return getattr(mod, cfg["reference_class"])
 
 

@@ -68,6 +68,12 @@ def no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def worst(*values: float) -> float:
+    """The largest of ``values``, or NaN where any is NaN (Python's ``max``
+    keeps or drops a NaN by its place)."""
+    return float("nan") if any(v != v for v in values) else max(values)
+
+
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
     """||a - b|| / ||b||, both taken in float64."""
     a, b = a.double(), b.double()

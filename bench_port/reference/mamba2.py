@@ -13,11 +13,13 @@ decays, across blocks by carrying S); y gated by SiLU(z), an RMSNorm over
 the inner width, and the output projection.  The decode cache it hands on
 is S after the last step and the last K-1 rows of the convolution's input.
 Weights arrive as the benchmark's flat dict of leaves; math is float32, or
-fp8 products for the control.
+fp8 products for the control.  Training's gradients (``loss_and_grads``)
+recompute each layer under autograd from its kept input, as the dense
+reference's do.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,3 +97,38 @@ class Mamba2Ref:
                 on_cache(l, {"state": state, "conv": tail})
         h = rms_norm(x[:, -1], self.W["final_norm"], self.cfg["norm_eps"])
         return self.prec.mm(h, self.W["embed"].T)
+
+    def loss_and_grads(self, tokens: torch.Tensor, labels: torch.Tensor) -> Tuple[float, Dict[str, torch.Tensor]]:
+        """Mean cross entropy over every position, and its gradient for
+        every leaf (f32, stacked like the leaves); the tied embedding's
+        gradient sums the head's and the lookup's.  The layers' inputs are
+        kept; each layer is recomputed under autograd on the way back."""
+        cfg, L = self.cfg, self.cfg["n_layers"]
+        grads = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device) for k, v in self.W.items()}
+        xs: List[torch.Tensor] = []
+        with torch.no_grad():
+            x = self.W["embed"][tokens].float()
+            for l in range(L):
+                xs.append(x)
+                x = self.layer(self.layer_weights(l), x)[0]
+        x = x.detach().requires_grad_(True)
+        fn = self.W["final_norm"].float().requires_grad_(True)
+        emb = self.W["embed"].float().requires_grad_(True)
+        h = rms_norm(x, fn, cfg["norm_eps"])
+        logits = self.prec.mm(h, emb.T)
+        loss = F.cross_entropy(logits.view(-1, logits.shape[-1]), labels.reshape(-1))
+        gx, gfn, gemb = torch.autograd.grad(loss, (x, fn, emb))
+        grads["final_norm"] += gfn
+        grads["embed"] += gemb
+        del logits, h, emb, gemb
+        for l in reversed(range(L)):
+            wl = {k: v.float().requires_grad_(True) for k, v in self.layer_weights(l).items()}
+            xin = xs[l].requires_grad_(True)
+            out = self.layer(wl, xin)[0]
+            gs = torch.autograd.grad(out, (xin, *wl.values()), gx)
+            gx = gs[0]
+            for name, g in zip(wl, gs[1:]):
+                grads[P0 + name][l] += g
+            xs[l] = None
+        grads["embed"].index_add_(0, tokens.reshape(-1), gx.reshape(-1, gx.shape[-1]))
+        return float(loss.detach()), grads

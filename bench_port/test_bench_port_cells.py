@@ -43,7 +43,8 @@ def test_toy_control_fails_the_check(workload):
 @pytest.mark.parametrize(
     "workload,fault",
     [("danube3-4b.train.bucket", "state_unchanged"), ("danube3-4b.train.bucket", "half_batch"),
-     ("mamba2-130m.prefill.2k", "token_altered"), ("danube3-4b.prefill.4k", "token_altered")],
+     ("mamba2-130m.prefill.2k", "token_altered"), ("danube3-4b.prefill.4k", "token_altered"),
+     ("mamba2-130m.prefill.2k", "cache_altered"), ("danube3-4b.prefill.4k", "cache_altered")],
 )
 def test_toy_fault_fails_the_check(workload, fault):
     with faults.FAULTS[fault]():

@@ -1,8 +1,11 @@
 """Weights of a configuration, drawn from the run's seed on the run's device.
 
 The layout is the port's parameter tree (``DecoderLM(cfg, tree)`` checks
-every leaf's shape and dtype): ``embed``, ``head`` (untied only),
-``final_norm`` and ``stack/pos0/...`` leaves with a leading axis of layers.
+every leaf's shape and dtype): ``embed`` (none for a ``frame`` frontend),
+``head`` (untied only), ``final_norm`` and, for each position ``i`` of the
+period (``layouts.positions``), ``stack/pos{i}/...`` leaves with a leading
+axis of ``n_layers / len(period)``.  A configuration that names a
+``layout`` module takes its leaves from it (``layouts/__init__.py``).
 Every matrix comes out of one ``torch.randn`` call in the served dtype,
 scaled by fan_in ** -0.5; norms are ones, biases zeros; an SSM's ``A_log``,
 ``dt_bias`` and ``D`` follow the Mamba-2 initialisation (A uniform in
@@ -16,47 +19,73 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from bench_port import layouts
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+RULES = ("dense", "ones", "zeros", "A_log", "dt_bias", "D")
+Leaf = Tuple[str, tuple, str]  # (path, shape, rule)
 
 
-def _leaves(cfg: dict) -> List[Tuple[str, tuple, str]]:
-    """(path, shape, rule) of every leaf; rule is "dense", "ones", "zeros",
-    or an SSM rule ("A_log", "dt_bias", "D")."""
-    d, V, L = cfg["d_model"], cfg["vocab"], cfg["n_layers"]
-    out = [("embed", (V, d), "dense")]
+def attention_leaves(cfg: dict) -> List[Leaf]:
+    d, H = cfg["d_model"], cfg["n_heads"]
+    hd = cfg.get("head_dim") or d // H
+    q, kv = H * hd, (cfg.get("n_kv_heads") or H) * hd
+    out = [("wq", (d, q), "dense"), ("wk", (d, kv), "dense"), ("wv", (d, kv), "dense"), ("wo", (q, d), "dense")]
+    if cfg.get("qkv_bias", False):
+        out += [("bq", (q,), "zeros"), ("bk", (kv,), "zeros"), ("bv", (kv,), "zeros")]
+    return out
+
+
+def ssm_leaves(cfg: dict) -> List[Leaf]:
+    d = cfg["d_model"]
+    di = cfg["ssm_expand"] * d
+    H = di // cfg["ssm_head_dim"]
+    GN = cfg["ssm_groups"] * cfg["ssm_state"]
+    conv = di + 2 * GN
+    return [
+        ("in_proj", (d, 2 * di + 2 * GN + H), "dense"),
+        ("conv_w", (cfg["ssm_conv"], conv), "dense"),
+        ("conv_b", (conv,), "zeros"),
+        ("A_log", (H,), "A_log"),
+        ("D", (H,), "D"),
+        ("dt_bias", (H,), "dt_bias"),
+        ("gate_norm", (di,), "ones"),
+        ("out_proj", (di, d), "dense"),
+    ]
+
+
+def mlp_leaves(cfg: dict) -> List[Leaf]:
+    d, f = cfg["d_model"], cfg["d_ff"]
+    gate = [("w_gate", (d, f), "dense")] if cfg.get("mlp_act", "swiglu") == "swiglu" else []
+    return gate + [("w_up", (d, f), "dense"), ("w_down", (f, d), "dense")]
+
+
+def moe_leaves(cfg: dict) -> List[Leaf]:
+    d, f, E = cfg["d_model"], cfg["d_ff"], cfg["n_experts"]
+    up = [("w_up", (E, d, f), "dense")] if cfg.get("mlp_act", "swiglu") == "swiglu" else []
+    return [("router", (d, E), "dense"), ("w_gate", (E, d, f), "dense")] + up + [("w_down", (E, f, d), "dense")]
+
+
+MIXERS = {"attn": attention_leaves, "ssm": ssm_leaves}
+CHANNEL_MIXERS = {"mlp": mlp_leaves, "moe": moe_leaves}
+
+
+def leaves(cfg: dict) -> List[Leaf]:
+    """The built-in layout: (path, shape, rule) of every leaf, in the order
+    they are drawn; rule is one of ``RULES``."""
+    d, V = cfg["d_model"], cfg["vocab"]
+    n = layouts.n_periods(cfg)
+    out = [] if cfg.get("frontend", "none") == "frame" else [("embed", (V, d), "dense")]
     if not cfg.get("tie_embeddings", False):
         out.append(("head", (d, V), "dense"))
     out.append(("final_norm", (d,), "ones"))
-    p = "stack/pos0/"
-    out.append((p + "norm1", (L, d), "ones"))
-    if cfg["family"] == "ssm":
-        di = cfg["ssm_expand"] * d
-        H = di // cfg["ssm_head_dim"]
-        GN = cfg["ssm_groups"] * cfg["ssm_state"]
-        conv = di + 2 * GN
-        out += [
-            (p + "mixer/in_proj", (L, d, 2 * di + 2 * GN + H), "dense"),
-            (p + "mixer/conv_w", (L, cfg["ssm_conv"], conv), "dense"),
-            (p + "mixer/conv_b", (L, conv), "zeros"),
-            (p + "mixer/A_log", (L, H), "A_log"),
-            (p + "mixer/D", (L, H), "D"),
-            (p + "mixer/dt_bias", (L, H), "dt_bias"),
-            (p + "mixer/gate_norm", (L, di), "ones"),
-            (p + "mixer/out_proj", (L, di, d), "dense"),
-        ]
-        return out
-    hd = cfg["head_dim"]
-    q, kv, f = cfg["n_heads"] * hd, cfg["n_kv_heads"] * hd, cfg["d_ff"]
-    out += [
-        (p + "mixer/wq", (L, d, q), "dense"),
-        (p + "mixer/wk", (L, d, kv), "dense"),
-        (p + "mixer/wv", (L, d, kv), "dense"),
-        (p + "mixer/wo", (L, q, d), "dense"),
-        (p + "norm2", (L, d), "ones"),
-        (p + "mlp/w_gate", (L, d, f), "dense"),
-        (p + "mlp/w_up", (L, d, f), "dense"),
-        (p + "mlp/w_down", (L, f, d), "dense"),
-    ]
+    for i, (mixer, mlp) in enumerate(layouts.positions(cfg)):
+        p = f"stack/pos{i}/"
+        out.append((p + "norm1", (n, d), "ones"))
+        out += [(p + "mixer/" + k, (n, *s), r) for k, s, r in MIXERS[mixer](cfg)]
+        if mlp != "none":
+            out.append((p + "norm2", (n, d), "ones"))
+            out += [(p + "mlp/" + k, (n, *s), r) for k, s, r in CHANNEL_MIXERS[mlp](cfg)]
     return out
 
 
@@ -67,8 +96,12 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """Flat dict path -> tensor (``nest`` makes the port's tree of it)."""
     dt = _DTYPES[cfg["dtype"]]
     g = torch.Generator(device=device).manual_seed(seed)
-    leaves = _leaves(cfg)
-    dense = [(p, s) for p, s, r in leaves if r == "dense"]
+    layout = layouts.find(cfg)
+    drawn = (layout.leaves if layout else leaves)(cfg)
+    unknown = sorted({r for _, _, r in drawn} - set(RULES))
+    if unknown:
+        raise ValueError(f"unknown rules {unknown}; a layout draws with {RULES}")
+    dense = [(p, s) for p, s, r in drawn if r == "dense"]
     flat = torch.randn(sum(math.prod(s) for _, s in dense), generator=g, dtype=dt, device=device)
     out: Dict[str, torch.Tensor] = {}
     at = 0
@@ -76,7 +109,7 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         n = math.prod(shape)
         out[path] = flat[at : at + n].view(shape).mul_(shape[-2] ** -0.5)
         at += n
-    for path, shape, rule in leaves:
+    for path, shape, rule in drawn:
         if rule == "dense":
             continue
         leaf_dt = torch.float32 if path.rsplit("/", 1)[-1] in F32_LEAVES else dt
@@ -107,12 +140,12 @@ def nest(flat: Dict[str, torch.Tensor]) -> Dict:
 
 
 def leaf_slices(flat: Dict[str, torch.Tensor]):
-    """(name, tensor) of every per-layer slice and whole leaf, named as the
-    port names its parameters."""
+    """(name, tensor) of every per-period slice and whole leaf, named as
+    the port names its parameters (``layers.{p}.pos{i}...``)."""
     for path, t in flat.items():
         if path.startswith("stack/"):
             rest = path[len("stack/"):].replace("/", ".")
-            for layer in range(t.shape[0]):
-                yield f"layers.{layer}.{rest}", t[layer]
+            for p in range(t.shape[0]):
+                yield f"layers.{p}.{rest}", t[p]
         else:
             yield path.replace("/", "."), t
