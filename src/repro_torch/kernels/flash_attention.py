@@ -5,8 +5,9 @@ PyTorch version.
 Both kernels replace ``src/repro/kernels/flash_attention.py::_flash_kernel``,
 the Pallas TPU kernel, and compute the same function: q (B, Sq, H, hd),
 k/v (B, Sk, KV, hd), q head h reads kv head h // (H // KV), optional causal
-mask and sliding window (keys with ``kpos > qpos - window`` are kept), online
-softmax with m, l and the accumulator in f32, output ``acc / max(l, 1e-30)``
+mask and sliding window (keys with ``kpos > qpos - window`` are kept), the
+scores scaled by ``scale`` (hd ** -0.5 by default), online softmax with m,
+l and the accumulator in f32, output ``acc / max(l, 1e-30)``
 in q's dtype; any head_dim up to 128 (120 for h2o-danube-3-4b).
 
 What bounds it on the card: at prefill lengths it does 4·hd FLOPs per
@@ -141,15 +142,16 @@ def flash_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Launch the variant the dtype rule picks on q's current stream;
     returns (B, Sq, H, hd) in q's dtype.  Raises on input the kernels do not
     take, and if the launch is refused."""
     _check(q, k, v, window)
     if _variant_of(q, k, v) == TENSOR_CORE:
-        out = flash_attention_tc(q, k, v, causal=causal, window=window)
+        out = flash_attention_tc(q, k, v, causal=causal, window=window, scale=scale)
     else:
-        out = flash_attention_cuda_core(q, k, v, causal=causal, window=window)
+        out = flash_attention_cuda_core(q, k, v, causal=causal, window=window, scale=scale)
     flash_attention.launches += 1
     return out
 
@@ -157,7 +159,7 @@ def flash_attention(
 flash_attention.launches = 0
 
 
-def _launch(fn, err, q, k, v, extra, causal, window) -> torch.Tensor:
+def _launch(fn, err, q, k, v, extra, causal, window, scale) -> torch.Tensor:
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -166,7 +168,7 @@ def _launch(fn, err, q, k, v, extra, causal, window) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *extra, B, Sq, Sk, H, KV, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), -1 if window is None else int(window), hd ** -0.5,
+            int(causal), -1 if window is None else int(window), hd ** -0.5 if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -181,6 +183,7 @@ def flash_attention_tc(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The tensor-core kernel (bf16, TMA-aligned input only).  Raises on
     input it does not take and on a non-zero code from its C entry (a refused
@@ -193,7 +196,7 @@ def flash_attention_tc(
         )
     lib = _tc_kernel()
     out = _launch(lib.flash_attention_tc_fwd, lib.flash_attention_tc_error_string,
-                  q, k, v, (), causal, window)
+                  q, k, v, (), causal, window, scale)
     flash_attention_tc.launches += 1
     return out
 
@@ -208,13 +211,14 @@ def flash_attention_cuda_core(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The CUDA-core kernel (f32 or bf16, any strides with a contiguous last
     dim)."""
     _check(q, k, v, window)
     lib = _kernel()
     out = _launch(lib.flash_attention_fwd, lib.flash_attention_error_string,
-                  q, k, v, (_DTYPE_CODES[q.dtype],), causal, window)
+                  q, k, v, (_DTYPE_CODES[q.dtype],), causal, window, scale)
     flash_attention_cuda_core.launches += 1
     return out
 
@@ -229,13 +233,14 @@ def flash_attention_plain(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device: f32 scores of
-    (q·hd^-0.5) against k, the masks, softmax, fully-masked rows -> 0, f32
-    PV product, output in q's dtype."""
+    (q·scale, hd^-0.5 by default) against k, the masks, softmax,
+    fully-masked rows -> 0, f32 PV product, output in q's dtype."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
-    qg = (q * hd ** -0.5).reshape(B, Sq, KV, H // KV, hd).float()
+    qg = (q * (hd ** -0.5 if scale is None else scale)).reshape(B, Sq, KV, H // KV, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]

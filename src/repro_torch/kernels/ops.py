@@ -41,14 +41,16 @@ def flash_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Blocked online-softmax attention. q (B,Sq,H,hd); k/v (B,Sk,KV,hd)."""
+    """Blocked online-softmax attention. q (B,Sq,H,hd); k/v (B,Sk,KV,hd);
+    the scores' scale ``scale``, hd ** -0.5 by default."""
     _forward_only("flash_attention", q, k, v)
     with leaf_span("kernel.flash_attention", q=q.shape, kv=k.shape):
         if q.is_cuda:
-            return _flash.flash_attention(q, k, v, causal=causal, window=window)
+            return _flash.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
         if q.device.type == "cpu":
-            return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+            return _flash.flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 

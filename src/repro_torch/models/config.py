@@ -9,7 +9,9 @@ attention:Mamba interleave with MoE every other layer is a period of 8.
 
 This is the PyTorch port's own copy of ``repro.models.config``: every field
 keeps its name except ``use_pallas``, which is ``use_kernels`` here, and
-``jnp_dtype`` becomes ``torch_dtype``.
+``jnp_dtype`` becomes ``torch_dtype``.  The fields after ``use_kernels`` are
+the port's own (the reference has none of them); each default leaves a
+model as the reference builds it.
 """
 from __future__ import annotations
 
@@ -70,6 +72,16 @@ class ArchConfig:
     # attention of models/layers.py on either device.
     use_kernels: bool = True
 
+    # --- the port's own fields ---------------------------------------------
+    # The names of the published configs that have them (GraniteMoeHybrid).
+    shared_intermediate_size: int = 0  # a shared SwiGLU expert of this width beside the routed ones
+    moe_dropless: bool = False  # every routed (token, expert) pair is computed: no capacity
+    position_embedding_type: str = "rope"  # rope | nope (attention without rotary)
+    attention_multiplier: Optional[float] = None  # the softmax scale; None => head_dim ** -0.5
+    embedding_multiplier: float = 1.0  # the embedding lookup times this
+    residual_multiplier: float = 1.0  # each sub-layer's output times this before its residual add
+    logits_scaling: float = 1.0  # the logits divided by this
+
     def __post_init__(self):
         if self.n_kv_heads == 0:
             object.__setattr__(self, "n_kv_heads", self.n_heads)
@@ -89,6 +101,12 @@ class ArchConfig:
                 raise ValueError(f"unknown mlp kind {kind!r}")
         if "moe" in self.mlp_pattern and (self.n_experts < 2 or self.top_k < 1):
             raise ValueError("moe layers need n_experts>=2 and top_k>=1")
+        if self.position_embedding_type not in ("rope", "nope"):
+            raise ValueError(f"unknown position_embedding_type {self.position_embedding_type!r}")
+        if self.moe_dropless and self.mlp_act != "swiglu":
+            raise ValueError("the dropless MoE takes SwiGLU experts")
+        if self.shared_intermediate_size and not self.moe_dropless:
+            raise ValueError("a shared expert runs on the dropless MoE path: set moe_dropless")
 
     # -- derived -----------------------------------------------------------
     @property
@@ -106,6 +124,13 @@ class ArchConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """The attention scores' scale: ``attention_multiplier``, or head_dim ** -0.5."""
+        if self.attention_multiplier is None:
+            return self.head_dim ** -0.5
+        return self.attention_multiplier
 
     @property
     def has_attention(self) -> bool:
@@ -160,6 +185,7 @@ class ArchConfig:
                 total += n * n_mats * d * self.d_ff
             elif mlp == "moe":
                 total += n * (d * self.n_experts + self.n_experts * n_mats * d * self.d_ff)
+                total += n * 3 * d * self.shared_intermediate_size  # the shared expert, once
         return total
 
     def active_param_count(self) -> int:

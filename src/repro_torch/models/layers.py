@@ -149,17 +149,19 @@ def chunked_attention(
     *,
     chunk: int = 1024,
     q_offset: int = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-style attention: a loop over KV chunks with an online softmax.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H = KV * G (GQA).  ``p`` is
     cast to ``v.dtype`` before the PV product, as the reference does; the
-    statistics m/l and the accumulator stay f32.
+    statistics m/l and the accumulator stay f32.  The scores' scale is
+    ``scale``, hd ** -0.5 by default.
     """
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     qg = (q * scale).reshape(B, Sq, KV, G, hd).float()
     n_chunks = -(-Sk // chunk)
     pad = n_chunks * chunk - Sk
@@ -192,13 +194,15 @@ def chunked_attention(
 
 
 def plain_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: AttnMask, q_offset: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: AttnMask, q_offset: int = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Direct softmax attention (oracle for tests; decode path)."""
+    """Direct softmax attention (oracle for tests; decode path); the scores'
+    scale is ``scale``, hd ** -0.5 by default."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
-    qg = (q * hd ** -0.5).reshape(B, Sq, KV, G, hd)
+    qg = (q * (hd ** -0.5 if scale is None else scale)).reshape(B, Sq, KV, G, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
     qpos = q_offset + torch.arange(Sq, device=q.device)
     ok = _mask_block(qpos, torch.arange(Sk, device=q.device), mask)
@@ -252,7 +256,9 @@ def attention_block(
     ctx: Optional[MeshContext] = None,
     full_kv: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full attention sub-layer: qkv proj, rope, SDPA, out proj.
+    """Full attention sub-layer: qkv proj, rope (unless the configuration's
+    ``position_embedding_type`` is "nope"), SDPA at ``cfg.softmax_scale``,
+    out proj.
 
     Prefill: ``kv_cache=None`` — attends within ``x`` and returns the roped
     K/V it made, which are the decode cache's entries for these positions.
@@ -306,8 +312,10 @@ def attention_block(
     q = q.to(dt).reshape(B, S, h1 - h0, hd)
     k = k.to(dt).reshape(B, S, -1, hd)
     v = v.to(dt).reshape(B, S, -1, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.position_embedding_type == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    scale = cfg.softmax_scale
 
     if kv_cache is None:
         cache = (k, v)
@@ -316,13 +324,13 @@ def attention_block(
             from repro_torch.kernels import ops  # lazy: no cycle
 
             def core(q, k, v):
-                return ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+                return ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window, scale=scale)
         elif S > cfg.attn_chunk:
             def core(q, k, v):
-                return chunked_attention(q, k, v, mask, chunk=cfg.attn_chunk)
+                return chunked_attention(q, k, v, mask, chunk=cfg.attn_chunk, scale=scale)
         else:
             def core(q, k, v):
-                return plain_attention(q, k, v, mask)
+                return plain_attention(q, k, v, mask, scale=scale)
     else:
         K, V = kv_cache
         assert cache_pos is not None
@@ -334,7 +342,7 @@ def attention_block(
         mask = AttnMask(causal=cfg.causal, window=cfg.window, kv_len=kv_len)
 
         def core(q, k, v):  # query absolute position == its cache slot
-            return plain_attention(q, k, v, mask, q_offset=cache_pos)
+            return plain_attention(q, k, v, mask, q_offset=cache_pos, scale=scale)
     out = _by_runs(core, q, k, v, cfg, h0, h1, k0)
     y = _dot_f32(out.reshape(B, S, (h1 - h0) * hd), wo)
     if split:

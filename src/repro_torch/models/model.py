@@ -38,6 +38,12 @@ frontends are the reference's stubs: a ``"patch"`` config (the VLM) writes
 precomputed patch embeddings over its first ``n_frontend_tokens`` token
 embeddings, a ``"frame"`` config (the audio encoder) takes precomputed
 frame embeddings as its input and has no ``embed`` leaf.
+
+The port's own configuration fields (GraniteMoeHybrid's multipliers) act
+here: ``embedding_multiplier`` on the lookup, ``residual_multiplier`` on
+each sub-layer's output before its residual add, and ``logits_scaling``
+dividing the head's logits.  Each acts only where it is not 1, so every
+other model launches what it did without them.
 """
 from __future__ import annotations
 
@@ -276,9 +282,11 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
                  ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """The token embedding lookup: ``table[tokens]``, or, where the
     vocabulary splits over ``ctx``'s model axis, the lookup on this rank's
-    rows summed over the group (``parallel.vocab_embed``)."""
+    rows summed over the group (``parallel.vocab_embed``); times
+    ``cfg.embedding_multiplier`` in the embedding's dtype."""
     vctx = vocab_ctx(cfg, ctx)
-    return table[tokens] if vctx is None else vocab_embed(table, tokens, cfg, vctx)
+    x = table[tokens] if vctx is None else vocab_embed(table, tokens, cfg, vctx)
+    return x if cfg.embedding_multiplier == 1 else x * cfg.embedding_multiplier
 
 
 def embed_inputs(params: DecoderLM, cfg: ArchConfig, batch: Dict,
@@ -307,13 +315,20 @@ def embed_inputs(params: DecoderLM, cfg: ArchConfig, batch: Dict,
     return x
 
 
+def _residual(x: torch.Tensor, y: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``x + y``, the sub-layer's output ``y`` times ``cfg.residual_multiplier``
+    first (in the model dtype) where that is not 1."""
+    m = cfg.residual_multiplier
+    return x + y if m == 1 else x + y * m
+
+
 def _channel_mix(
     blk: Block, x: torch.Tensor, cfg: ArchConfig, kind: str, ctx: Optional[MeshContext]
 ) -> torch.Tensor:
     h = rms_norm(x, blk.norm2, cfg.norm_eps)
     if kind == "moe":
-        return x + moe_block(blk.mlp, h, cfg, ctx)
-    return x + mlp_block(blk.mlp, h, cfg, ctx)
+        return _residual(x, moe_block(blk.mlp, h, cfg, ctx), cfg)
+    return _residual(x, mlp_block(blk.mlp, h, cfg, ctx), cfg)
 
 
 def _period_forward(
@@ -356,7 +371,7 @@ def _period_forward(
             else:
                 y, (state, conv) = ck(functools.partial(ssm_block, ctx=ctx), blk.mixer, h, cfg)
                 carry = {"state": state, "conv": conv}
-            x = x + y
+            x = _residual(x, y, cfg)
         if collect_cache:
             caches[f"pos{i}"] = carry
         if mlp != "none":
@@ -392,7 +407,7 @@ def _period_decode(
             y, (state, conv) = ssm_block_decode(blk.mixer, h, cfg, (c["state"], c["conv"]), ctx)
             c["state"].copy_(state)
             c["conv"].copy_(conv)
-        x = x + y
+        x = _residual(x, y, cfg)
         if mlp != "none":
             x = _channel_mix(blk, x, cfg, mlp, ctx)
     return x
@@ -465,12 +480,14 @@ def head_logits(hidden: torch.Tensor, w: torch.Tensor, cfg: ArchConfig,
     """The head product, f32: ``hidden @ w`` on every column of ``w``, which
     under a split vocabulary are this rank's V/m; the hidden state then
     enters the group's region (its gradient is the sum of the ranks'
-    partial products)."""
+    partial products).  Divided by ``cfg.logits_scaling`` where that is
+    not 1."""
     vctx = vocab_ctx(cfg, ctx)
     if vctx is not None:
         vocab_range(cfg, vctx, w.shape[1], "the head")
         hidden = into_region(hidden, vctx)
-    return _dot_f32(hidden, w)
+    logits = _dot_f32(hidden, w)
+    return logits if cfg.logits_scaling == 1 else logits / cfg.logits_scaling
 
 
 def lm_head(params: DecoderLM, cfg: ArchConfig, hidden: torch.Tensor,

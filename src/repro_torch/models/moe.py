@@ -1,5 +1,6 @@
-"""Mixture-of-Experts FFN: top-k routing with capacity-based token dropping.
-The PyTorch port of ``repro.models.moe``, local path.
+"""Mixture-of-Experts FFN: top-k routing with capacity-based token dropping
+(the PyTorch port of ``repro.models.moe``, local path), or dropless routing
+with a shared expert, which only the port has (``_moe_dropless``).
 
 Routing is GShard-style top-k, first come first served in flattened
 ``B*S`` order, without the (tokens, experts, capacity) one-hot dispatch
@@ -22,6 +23,18 @@ tokens of *its* experts, and one ``all_reduce`` over the model group, in
 the model dtype, combines them.  Both paths share ``_moe_local``: the
 sharded one runs it over the rank's experts only, with the capacity of the
 rank's own tokens.
+
+The dropless path (``cfg.moe_dropless``, GraniteMoeHybrid's routing) keeps
+every routed pair: one stable sort of the T·k (token, expert) pairs by
+expert, one gather of their rows, then each expert's SwiGLU over its
+contiguous slice with the dtype stream above, and each token's k rows
+scaled by their weights and summed in f32 (``embedding_bag``); a shared
+SwiGLU expert of ``shared_intermediate_size`` (if any) over every token
+adds into the same f32 sum, cast once.  The experts'
+bounds in the sorted pairs reach the host once a layer, to slice by.  Its
+``model.moe.route`` span carries ``rows_max`` and ``rows_mean`` (the
+busiest expert's rows and the mean over the experts) and its
+``model.moe.experts`` span ``rows``, the pairs it computed (T·k).
 """
 from __future__ import annotations
 
@@ -33,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dot_f32
 from repro_torch.models.parallel import into_region, out_of_region
+from repro_torch.obs.spans import span
 
 
 def router_probs(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -117,6 +131,68 @@ def _moe_local(
     return acc
 
 
+def _dot_f32_into(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> None:
+    """``out[...] = _dot_f32(x, w)``.  Serving on the card, the GEMM writes
+    its f32 result into ``out`` itself, with no copy."""
+    if not x.is_cuda or torch.is_grad_enabled():
+        out.copy_(_dot_f32(x, w))
+    elif x.dtype == torch.float32:
+        torch.mm(x, w, out=out)
+    else:
+        torch.mm(x, w, out_dtype=torch.float32, out=out)
+
+
+ROWS = 128  # an expert's GEMMs run over its rows rounded up to a multiple of this
+
+
+def _moe_dropless(params, x_flat: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Every routed (token, expert) pair, then the shared expert, in f32.
+    Each expert's products write its rows of buffers over all T·k sorted
+    pairs, so the host launches three GEMMs an expert and nothing else; the
+    SwiGLU between them, and each token's weighted sum over its k pairs
+    (``embedding_bag`` over the pairs' f32 rows), run once over all pairs.
+
+    An expert's GEMMs take its rows rounded up to ``ROWS``, so that their
+    shapes repeat from batch to batch and the GEMM library picks no new
+    kernel for each new count.  The overhang runs into the next experts'
+    rows, which those experts, launched later on the same stream, write
+    again; the buffers hold ``ROWS`` spare rows for the last one's."""
+    T, k, E = x_flat.shape[0], cfg.top_k, cfg.n_experts
+    n, dev = T * k, x_flat.device
+    experts = list(zip(*(params[name].unbind(0) for name in ("w_gate", "w_up", "w_down"))))
+    with span("model.moe.route") as route:
+        topk_idx, topk_w = router_probs(x_flat, params["router"], k)
+        # pair j is token j // k; sorted by expert, each expert's tokens in order
+        pair_expert, order = torch.sort(topk_idx.reshape(-1), stable=True)
+        xs = x_flat.index_select(0, F.pad(order // k, (0, ROWS)))  # the spare rows: token 0's
+        # where pair j sits in the sorted order
+        slot = torch.empty_like(order).index_copy_(0, order, torch.arange(n, device=dev))
+        # expert e's pairs are [bounds[e], bounds[e + 1]): the layer's one host read
+        bounds = torch.searchsorted(pair_expert, torch.arange(E + 1, device=dev)).tolist()
+        if route is not None:
+            route.attrs.update(rows_max=max(b - a for a, b in zip(bounds, bounds[1:])), rows_mean=n / E)
+    busy = [(a, a - (a - b) // ROWS * ROWS, w) for w, a, b in zip(experts, bounds, bounds[1:]) if a < b]
+    with span("model.moe.experts") as computed:
+        gate = torch.empty((n + ROWS, cfg.d_ff), dtype=torch.float32, device=dev)
+        up = torch.empty_like(gate)
+        for a, b, (w_gate, w_up, _) in busy:
+            _dot_f32_into(xs[a:b], w_gate, gate[a:b])
+            _dot_f32_into(xs[a:b], w_up, up[a:b])
+        h = (F.silu(gate) * up).to(x_flat.dtype)
+        del gate, up
+        y = torch.empty((n + ROWS, x_flat.shape[1]), dtype=torch.float32, device=dev)
+        for a, b, (_, _, w_down) in busy:
+            _dot_f32_into(h[a:b], w_down, y[a:b])
+        acc = F.embedding_bag(slot.view(T, k), y, per_sample_weights=topk_w, mode="sum")
+        if computed is not None:
+            computed.attrs["rows"] = bounds[-1]
+    if cfg.shared_intermediate_size:
+        with span("model.moe.shared"):
+            h = F.silu(_dot_f32(x_flat, params["shared_gate"])) * _dot_f32(x_flat, params["shared_up"])
+            acc += _dot_f32(h.to(x_flat.dtype), params["shared_down"])
+    return acc
+
+
 def moe_block(
     params,
     x: torch.Tensor,
@@ -135,6 +211,10 @@ def moe_block(
     B, S, d = x.shape
     dt = x.dtype
     x_flat = x.reshape(B * S, d)
+    if cfg.moe_dropless:
+        if ctx is not None and ctx.model_size > 1:
+            raise ValueError("the dropless MoE runs on one rank: its experts do not split over model")
+        return _moe_dropless(params, x_flat, cfg).to(dt).reshape(B, S, d)
     cap = _capacity(B * S, cfg, capacity_factor)
     if ctx is None or ctx.model_size == 1:
         return _moe_local(params, x_flat, cfg, cap).to(dt).reshape(B, S, d)
@@ -161,12 +241,17 @@ def moe_param_shapes(cfg: ArchConfig) -> dict:
     shapes = {"router": (d, E), "w_gate": (E, d, f), "w_down": (E, f, d)}
     if cfg.mlp_act == "swiglu":
         shapes["w_up"] = (E, d, f)
+    fs = cfg.shared_intermediate_size
+    if fs:
+        shapes.update(shared_gate=(d, fs), shared_up=(d, fs), shared_down=(fs, d))
     return shapes
 
 
 def moe_reference(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Oracle: dense all-experts compute in f32, exact top-k combine, NO
-    capacity limit.  moe_block converges to this as capacity_factor -> inf."""
+    capacity limit and no shared expert.  moe_block converges to this as
+    capacity_factor -> inf; the dropless path without a shared expert is
+    it."""
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d).float()
     topk_idx, topk_w = router_probs(x_flat, params["router"].float(), cfg.top_k)

@@ -37,10 +37,14 @@ def test_arch_ids_equal():
 def test_config_fields_equal(arch, smoke):
     r, t = _pair(arch, smoke)
     want, got = dataclasses.asdict(r), dataclasses.asdict(t)
-    # the one rename: use_pallas -> use_kernels, in the same place
+    # the one rename: use_pallas -> use_kernels, in the same place; the
+    # reference's fields are the port's leading ones, and the port's own
+    # trailing fields stay at their defaults in every preset
     names_r = [f.name for f in dataclasses.fields(r)]
-    names_t = [f.name for f in dataclasses.fields(t)]
-    assert names_t == [("use_kernels" if n == "use_pallas" else n) for n in names_r]
+    fields_t = dataclasses.fields(t)
+    assert [f.name for f in fields_t[: len(names_r)]] == [("use_kernels" if n == "use_pallas" else n) for n in names_r]
+    for f in fields_t[len(names_r):]:
+        assert got.pop(f.name) == f.default, f.name
     want.pop("use_pallas")
     assert got.pop("use_kernels") is True
     assert got == want

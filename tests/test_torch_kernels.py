@@ -118,6 +118,25 @@ def test_cpu_dispatch_takes_plain_version_and_never_launches():
     assert FA.flash_attention.launches == before == 0
 
 
+SCALES = [1 / 128, 0.3]  # granite-4.0-h-small's attention_multiplier at hd 128; another
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("scale", SCALES)
+def test_plain_takes_a_scale(scale, causal):
+    """The scores' scale reaches the plain version, the CPU dispatch and
+    the port's chunked and plain attention alike, and moves the output."""
+    from repro_torch.models import layers as L
+
+    q, k, v = _torch(_qkv_np(9, 2, 70, 70, 4, 2, 128), "float32")
+    got = FA.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    assert torch.equal(tops.flash_attention(q, k, v, causal=causal, scale=scale), got)
+    mask = L.AttnMask(causal=causal)
+    _close(got, L.plain_attention(q, k, v, mask, scale=scale), TOL["float32"])
+    _close(got, L.chunked_attention(q, k, v, mask, chunk=32, scale=scale), TOL["float32"])
+    assert (got - FA.flash_attention_plain(q, k, v, causal=causal)).abs().max() > 1e-2
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = _torch(_qkv_np(5, 1, 8, 8, 2, 2, 16), "float32")
     with pytest.raises(ValueError, match="not a CUDA device"):
@@ -156,6 +175,20 @@ def test_cuda_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype, causal, window)
     assert got.dtype == q.dtype and got.is_cuda
     want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
     _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("scale", SCALES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_takes_a_scale(cuda, dtype, scale):
+    """granite-4.0-h-small's attention layer (32 / 8 heads of 128, 4096
+    positions) at a scale other than hd ** -0.5: the CUDA-core kernel in
+    f32, the tensor-core kernel in bf16."""
+    q, k, v = _torch(_qkv_np(10, 1, 4096, 4096, 32, 8, 128), dtype, cuda)
+    before = FA.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    _close(got, FA.flash_attention_plain(q, k, v, causal=True, scale=scale), TOL[dtype])
 
 
 def test_cuda_kernel_reads_strided_inputs(cuda):

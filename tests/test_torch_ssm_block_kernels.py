@@ -256,7 +256,12 @@ def test_dispatch_refuses_other_devices():
 # ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
+GRANITE = "granite-4.0-h-small"  # not a preset: mamba2-130m's SSM at d 4096 (d_inner 8192, 128 heads)
+
+
 def wide_cfg(arch: str, dtype: str):
+    if arch == GRANITE:
+        return dataclasses.replace(configs.get("mamba2-130m"), d_model=4096, dtype=dtype)
     return dataclasses.replace(configs.get(arch), dtype=dtype)
 
 
@@ -286,6 +291,7 @@ CARD_CONV = [
     ("mamba2-130m", 2, 777, "split", False),   # a rank's channels: C 1024 at offset 768
     ("mamba2-130m", 2, 300, "whole", True),    # no 16-byte loads
     ("jamba-1.5-large-398b", 1, 1024, "whole", False),  # d_inner 16,384, C 16,640
+    (GRANITE, 4, 4096, "whole", False),  # the granite cell's batch: d_inner 8192, C 8448 at offset 8192
 ]
 
 
@@ -312,6 +318,7 @@ CARD_NORM = [
     ("mamba2-130m", 3, 1000, False),
     ("mamba2-130m", 2, 300, True),    # no 16-byte loads of z
     ("jamba-1.5-large-398b", 1, 1024, False),  # d 16,384: a block a row
+    (GRANITE, 4, 4096, False),  # d 8192: the granite cell's batch
 ]
 
 
